@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on the GPU.
+
+    python3 chip_smoke.py [--seed 0] [--requests 16] [--tokens 64]
+
+Runs on one CUDA card, from the root of a checkout; it exits non-zero (and
+prints no result) when there is no card or no ``src/repro_torch`` beside it.
+In order:
+
+1. builds every CUDA kernel of ``src/repro_torch/kernels/csrc`` (``nvcc``, one
+   process per source, started together) and prints the build time;
+2. holds each kernel against its plain PyTorch version on the card: the
+   paged-attention kernel at the shapes of the JAX package's kernel test
+   (float32, tolerance 2e-5) and at full ``tinyllama-1.1b`` decode shapes
+   (bfloat16), an all-masked row included;
+3. serves full-width ``tinyllama-1.1b`` (22 layers, random weights from
+   ``--seed``) through the port's ``Engine`` on the paged layout — 16 greedy
+   requests, prompts of 100-500 tokens, 64 new tokens each — once with
+   one-shot and once with chunked prefill, and runs the same requests through
+   ``serve_sequential``. Checks: the kernel launched 22 times per decode step;
+   engine streams equal ``serve_sequential``'s; the two prefill modes agree
+   (a stream may leave the other only where the reference logits are a
+   near-tie, see ``--tie-tol``); every emitted token is, within ``--tie-tol``,
+   the argmax of a teacher-forced reference forward;
+4. times each kernel at the serving shape beside its bound, its plain version
+   and one library call, and prints the ``kernels`` JSON line, the card's name
+   and power limit, and last the ``{"ok": true, ...}`` line.
+
+Any failed phase exits non-zero before the last line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+SPIN_CYCLES = 5_000_000          # ~2.5 ms of GPU clock: longer than any enqueue
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else "nvidia-smi unavailable"
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"FAILED: {what}")
+
+
+def time_cuda(fn, iters: int, flush=None) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls, CUDA events around each
+    call. ``flush`` (outside the timed window) evicts the L2 cache first. A
+    spin kernel queued ahead of the start event keeps the card busy while
+    the host enqueues ``fn``, so the window holds device time only, not the
+    host's launch latency."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+# ------------------------------------------------------------ kernel checks
+
+
+def paged_inputs(torch, rng, B, ctx_max, H, KV, hd, ps, dtype, device):
+    """Random pool + a permuted page table covering ``ctx_max`` positions."""
+    P = -(-ctx_max // ps)
+    NP = B * P + 1                           # + reserved null page 0
+    k = torch.from_numpy(rng.standard_normal((NP, ps, KV, hd), "float32"))
+    v = torch.from_numpy(rng.standard_normal((NP, ps, KV, hd), "float32"))
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd), "float32"))
+    perm = rng.permutation(NP - 1)[:B * P] + 1
+    pt = torch.from_numpy(perm.reshape(B, P).astype("int32"))
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            pt.to(device))
+
+
+def kernel_checks(torch, np, seed, device):
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_decode, paged_attention_partial,
+        paged_attention_partial_ref)
+    from repro_torch.models.layers import NEG, attention_decode_paged
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    # (a) the JAX package's kernel-test shapes, float32, tolerance 2e-5
+    for KV, window in ((4, 0), (2, 0), (2, 10)):
+        q, k, v, pt = paged_inputs(torch, rng, 3, 32, 4, KV, 16, 8,
+                                   torch.float32, device)
+        pos = torch.tensor([0, 13, 31], device=device)
+        new_kv = tuple(torch.from_numpy(
+            rng.standard_normal((3, 1, KV, 16), "float32")).to(device)
+            for _ in range(2))
+        for nkv in (None, new_kv):
+            limit = (pos if nkv is not None else pos + 1).to(torch.int32)
+            got = paged_attention_partial(q, k, v, pt, limit, window=window)
+            want = paged_attention_partial_ref(q, k, v, pt, limit,
+                                               window=window)
+            for g, w in zip(got, want):
+                check(not torch.isnan(g).any().item(), "NaN in kernel output")
+                err = (g - w).abs().max().item()
+                worst = max(worst, err)
+                check(torch.allclose(g, w, rtol=2e-5, atol=2e-5),
+                      f"kernel vs plain (KV={KV}, window={window}): {err}")
+            d = paged_attention_decode(q, k, v, pt, pos, window=window,
+                                       new_kv=nkv)
+            r = attention_decode_paged(q, k, v, pt, pos, window=window,
+                                       new_kv=nkv)
+            check(torch.allclose(d, r, rtol=2e-5, atol=2e-5),
+                  f"decode vs gather path (KV={KV}, window={window})")
+        # limit 0 in row 0 (pos 0 with new_kv): all masked -> zeros, m=NEG, l=0
+        o, m, l = paged_attention_partial(q, k, v, pt, pos.to(torch.int32),
+                                          window=window)
+        check(bool((o[0] == 0).all()) and bool((m[0] == NEG).all())
+              and bool((l[0] == 0).all()), "all-masked row is not zero")
+    torch.cuda.synchronize()
+    # (b) full tinyllama decode shapes, bfloat16: both versions accumulate in
+    # float32 from the same bf16 inputs and round the output to bf16, so a
+    # 1e-6 difference in float32 can move it by one bf16 ulp (2^-7 for
+    # |x| < 2): tolerance 1.6e-2 absolute on out; m and l stay float32 and
+    # differ only by summation order (1e-4 relative)
+    B, H, KV, hd, ps = 8, 32, 4, 64, 16
+    q, k, v, pt = paged_inputs(torch, rng, B, 1024, H, KV, hd, ps,
+                               torch.bfloat16, device)
+    ctx = rng.integers(1, 1025, size=B)
+    ctx[0] = 0                                   # all-masked row
+    ctx[1], ctx[2] = 1, 1024
+    limit = torch.tensor(ctx, dtype=torch.int32, device=device)
+    got = paged_attention_partial(q, k, v, pt, limit)
+    want = paged_attention_partial_ref(q, k, v, pt, limit)
+    torch.cuda.synchronize()
+    check(not any(torch.isnan(g).any().item() for g in got), "NaN (bf16)")
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    check(err <= 1.6e-2, f"bf16 kernel vs plain out: {err}")
+    for g, w in zip(got[1:], want[1:]):
+        check(torch.allclose(g, w, rtol=1e-4, atol=1e-4), "bf16 m/l")
+    check(bool((got[0][0] == 0).all()), "bf16 all-masked row is not zero")
+    return worst, err
+
+
+# ------------------------------------------------------------- serving
+
+
+def teacher_logits(torch, api, cfg, params, prompt_padded, generated, device):
+    """Reference logits after ``prompt_padded + generated`` (a B=1 one-shot
+    forward through the plain prefill path)."""
+    seq = list(prompt_padded) + list(generated)
+    toks = torch.tensor([seq], dtype=torch.int64, device=device)
+    logits, _ = api.prefill(cfg, params, {"tokens": toks})
+    return logits[0, -1].float()
+
+
+def serve(torch, np, args, device, cfg=None, buckets=(128, 256, 512),
+          prompt_lens=(100, 500), chunk=128, max_seq=1024, page_size=16):
+    from repro_torch.configs import config
+    from repro_torch.kernels.paged_attention import paged_attention_partial
+    from repro_torch.models import api
+    from repro_torch.models.transformer import compute_params
+    from repro_torch.runtime.engine import (Engine, EngineConfig, RequestSpec,
+                                            serve_sequential)
+    cfg = cfg or config("tinyllama-1.1b")
+    rng = np.random.default_rng(args.seed)
+    params = api.init_params(cfg, args.seed, device=device)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=args.requests)
+    specs = [RequestSpec(tuple(int(t) for t in rng.integers(0, cfg.vocab, n)),
+                         args.tokens) for n in lens]
+
+    def engine(prefill_chunk):
+        return Engine(cfg, EngineConfig(
+            kv_layout="paged", page_size=page_size, slots=8, max_seq=max_seq,
+            prompt_buckets=buckets, prefill_chunk=prefill_chunk),
+            params=params, device=device)
+
+    out = {}
+    for name, c in (("oneshot", 0), ("chunked", chunk)):
+        eng = engine(c)
+        # warm cuBLAS / allocator outside the measured run
+        eng.run([RequestSpec((1,) * b, 2) for b in buckets])
+        eng.reset_stats()
+        paged_attention_partial.launches = 0
+        reqs = eng.run(specs)
+        launches = paged_attention_partial.launches
+        st = eng.stats()
+        streams = [eng.finalize_request(r) for r in reqs]
+        check(all(r.state == "done" for r in reqs), f"{name}: not all done")
+        check(st["decode_steps"] > 0 and launches > 0,
+              f"{name}: the paged-attention kernel never launched")
+        check(launches == st["decode_steps"] * cfg.n_layers,
+              f"{name}: {launches} launches != {st['decode_steps']} decode "
+              f"steps x {cfg.n_layers} layers")
+        check(all(len(s) == args.tokens for s in streams),
+              f"{name}: stream lengths")
+        out[name] = dict(streams=streams, launches=launches,
+                         steps=st["decode_steps"],
+                         tokens_per_s=st["tokens_per_s"],
+                         prefill_chunks=st["prefill_chunks"])
+        print(f"serve[{name}]: decode_steps={st['decode_steps']} "
+              f"kernel_launches={launches} prefill_chunks="
+              f"{st['prefill_chunks']} tokens/s={st['tokens_per_s']:.1f} "
+              f"occupancy={st['batch_occupancy']:.2f}", flush=True)
+        del eng
+    # latency mode: TTFT stamped when the first token exists
+    eng = engine(0)
+    eng.run([RequestSpec((1,) * b, 2) for b in buckets])
+    eng.reset_stats()
+    reqs = eng.run(specs, sync_per_step=True)
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    out["ttft_ms"] = (float(np.percentile(ttft, 50)),
+                      float(np.percentile(ttft, 99)))
+    out["latency_tokens_per_s"] = eng.stats()["tokens_per_s"]
+    check([eng.finalize_request(r) for r in reqs] == out["oneshot"]["streams"],
+          "latency-mode streams differ from the throughput run")
+    del eng
+    seq = serve_sequential(cfg, params, specs, max_seq=max_seq,
+                           prompt_buckets=buckets, page_size=page_size,
+                           device=device)
+    seq_streams = [seq["tokens"][i + 1] for i in range(len(specs))]
+    out["sequential_tokens_per_s"] = seq["tokens_per_s"]
+
+    # correctness against the plain reference forward (teacher-forced)
+    cparams = compute_params(cfg, params, torch.device(device))
+    padded = []
+    for s in specs:
+        b = next(b for b in buckets if b >= len(s.prompt))
+        padded.append(list(s.prompt) + [0] * (b - len(s.prompt)))
+
+    def near_tie(i, prefix, a, b):
+        lg = teacher_logits(torch, api, cfg, cparams, padded[i], prefix,
+                            device)
+        top = lg.max().item()
+        return top - lg[a].item() <= args.tie_tol and \
+            top - lg[b].item() <= args.tie_tol
+
+    def compare(xs, ys, what):
+        same = 0
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            j = next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                     None)
+            if j is None:
+                same += 1
+                continue
+            check(near_tie(i, x[:j], x[j], y[j]),
+                  f"{what}: request {i} leaves at token {j} ({x[j]} vs "
+                  f"{y[j]}) where the reference logits are no near-tie")
+        print(f"check: {what}: {same}/{len(xs)} streams identical, the "
+              f"rest leave only at reference near-ties", flush=True)
+        return same
+
+    one, chk = out["oneshot"]["streams"], out["chunked"]["streams"]
+    check(one == seq_streams, "engine streams != serve_sequential streams")
+    print(f"check: engine == serve_sequential: {len(one)}/{len(one)} streams "
+          f"identical", flush=True)
+    out["chunked_same"] = compare(one, chk, "chunked vs one-shot prefill")
+    # every emitted token is a near-argmax of the teacher-forced reference
+    worst = 0.0
+    for i in range(0, len(specs), max(len(specs) // 4, 1)):
+        for j in range(0, args.tokens, 16):
+            lg = teacher_logits(torch, api, cfg, cparams, padded[i],
+                                one[i][:j], device)
+            gap = lg.max().item() - lg[one[i][j]].item()
+            check(math.isfinite(gap), "non-finite reference logits")
+            worst = max(worst, gap)
+    check(worst <= args.tie_tol, f"emitted token {worst} below the "
+          f"reference argmax (> {args.tie_tol})")
+    print(f"check: teacher-forced reference: worst top-1 gap of an emitted "
+          f"token {worst:.4f} (<= {args.tie_tol})", flush=True)
+    out["serve_limits"] = [
+        next(b for b in buckets if b >= len(s.prompt)) + args.tokens // 2
+        for s in specs[:8]]
+    return out
+
+
+# ----------------------------------------------------------------- timing
+
+
+def time_kernels(torch, np, seed, limits, launches, device):
+    """The paged-attention kernel at the serving decode shape (one layer of
+    one step: 8 rows, tinyllama heads, the run's mid-stream contexts)."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partial, paged_attention_partial_ref)
+    import torch.nn.functional as F
+    from repro_torch.models.layers import gather_kv_pages
+    rng = np.random.default_rng(seed + 1)
+    B, H, KV, hd, ps = 8, 32, 4, 64, 16
+    q, k, v, pt = paged_inputs(torch, rng, B, 1024, H, KV, hd, ps,
+                               torch.bfloat16, device)
+    limit = torch.tensor(limits, dtype=torch.int32, device=device)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=device)
+
+    def flush():
+        scratch.zero_()                     # 256 MB > the 50 MB L2
+
+    saved = paged_attention_partial.launches
+    ms = time_cuda(lambda: paged_attention_partial(q, k, v, pt, limit), 50,
+                   flush)
+    plain_ms = time_cuda(lambda: paged_attention_partial_ref(
+        q, k, v, pt, limit), 50, flush)
+    paged_attention_partial.launches = saved   # timing launches do not count
+    # yardstick: one SDPA call on the already-gathered K/V with the same mask
+    S = pt.shape[1] * ps
+    G = H // KV
+
+    def heads(pages):                                    # [B, H, S, hd]
+        g = gather_kv_pages(pages, pt).permute(0, 2, 1, 3)
+        return g.repeat_interleave(G, dim=1).contiguous()
+
+    kg, vg = heads(k), heads(v)
+    qs = q.permute(0, 2, 1, 3).contiguous()              # [B, H, 1, hd]
+    mask = (torch.arange(S, device=device)[None, :] < limit[:, None].long())
+    mask = mask[:, None, None, :]
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask), 50, flush)
+    out_k = paged_attention_partial(q, k, v, pt, limit)[0].float()
+    paged_attention_partial.launches = saved
+    out_p = paged_attention_partial_ref(q, k, v, pt, limit)[0].float()
+    err = (out_k - out_p).abs().max().item()
+    ctx = int(sum(limits))
+    n_bytes = (2 * ctx * KV * hd * 2          # K and V rows attended (bf16)
+               + 2 * B * H * hd * 2           # q read, out written (bf16)
+               + 2 * B * H * 4                # m, l written (f32)
+               + pt.numel() * 4 + B * 4)      # page table, limits
+    flops = 4 * ctx * H * hd                  # q.k and p.v, 2 flops per MAC
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return [{
+        "name": "paged_attention_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:82",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms}]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--tie-tol", type=float, default=0.25,
+                    help="near-tie width of bf16 reference logits: 8 bf16 "
+                         "ulps at |logit| in [4, 8)")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package under {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build
+    device = "cuda"
+    card = card_line()
+    print(f"card: {card}", flush=True)
+
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: {len(build.sources())} kernel(s) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas[{name}]: {line.strip()}")
+
+    t0 = time.perf_counter()
+    err32, err16 = kernel_checks(torch, np, args.seed, device)
+    print(f"kernels vs plain: float32 max err {err32:.3g} (tol 2e-5), "
+          f"bf16 tinyllama max err {err16:.3g} (tol 1.6e-2) "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    t0 = time.perf_counter()
+    res = serve(torch, np, args, device)
+    torch.cuda.synchronize()
+    print(f"serve: one-shot {res['oneshot']['tokens_per_s']:.1f} tok/s, "
+          f"chunked {res['chunked']['tokens_per_s']:.1f} tok/s, sequential "
+          f"{res['sequential_tokens_per_s']:.1f} tok/s; TTFT p50 "
+          f"{res['ttft_ms'][0]:.1f} ms p99 {res['ttft_ms'][1]:.1f} ms "
+          f"(latency mode {res['latency_tokens_per_s']:.1f} tok/s) "
+          f"[{time.perf_counter() - t0:.1f} s] on {card}", flush=True)
+
+    kernels = time_kernels(torch, np, args.seed, res["serve_limits"],
+                           res["oneshot"]["launches"], device)
+    for k in kernels:
+        print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain "
+              f"{k['plain_ms']:.4f}, sdpa {k['library_ms']:.4f}, bound "
+              f"{k['bound_ms']:.4f} by {k['bound_by']}: bytes over "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, the H100 SXM data-sheet HBM3 "
+              f"rate, the least time any kernel needs to move them) on {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,9 +22,22 @@ In order:
    (a stream may leave the other only where the reference logits are a
    near-tie, see ``--tie-tol``); every emitted token is, within ``--tie-tol``,
    the argmax of a teacher-forced reference forward;
-4. times each kernel at the serving shape beside its bound, its plain version
-   and one library call, and prints the ``kernels`` JSON line, the card's name
-   and power limit, and last the ``{"ok": true, ...}`` line.
+4. checks the threefry sampling noise on the card: the random bits and
+   uniforms equal the CPU's, the Gumbel values within 2 ulp of
+   ``max(|g|, 1)``;
+5. drives the paper's UPIR kernel path for axpy, matvec, stencil2d and matmul:
+   each call is written with the OpenMP, OpenACC and CUDA frontends, the three
+   programs must be equal, the ``simd`` program lowers through
+   ``kernels.ops.lower_kernel_program`` to the CUDA kernel (its launch count
+   rises by one) and the ``worksharing`` program to the plain oracle, and the
+   two outputs must agree: float32 axpy and stencil bit for bit, the rest
+   within the tolerances of the JAX package's kernel test at its shapes and
+   within ``kernels.ref.error_bound`` at full size (axpy n = 2^28, matvec
+   32768^2, stencil 16384^2, matmul 8192^3 in bfloat16 and float32);
+6. times each kernel (paged attention at the serving shape, the paper kernels
+   at full size) beside its bound, its plain version and one library call,
+   and prints the ``kernels`` JSON line, the card's name and power limit, and
+   last the ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the last line.
 """
@@ -40,6 +53,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # H100 SXM float32 on the CUDA cores, data sheet
 SPIN_CYCLES = 5_000_000          # ~2.5 ms of GPU clock: longer than any enqueue
 
 
@@ -291,6 +305,149 @@ def serve(torch, np, args, device, cfg=None, buckets=(128, 256, 512),
     return out
 
 
+# ------------------------------------------------------ threefry on the card
+
+
+def threefry_check(torch, np, device):
+    """The sampler's threefry noise on the card equals the CPU's: the bits
+    and the uniforms exactly, the Gumbel values within 2 ulp of
+    ``max(|g|, 1)`` (each side's ``log`` rounds on its own)."""
+    from repro_torch.runtime import prng
+    from repro_torch.runtime.sampling import (SamplingParams, gumbel_noise,
+                                              request_key)
+    keys = np.stack([request_key(SamplingParams(seed=s), rid)
+                     for s, rid in ((0, 1), (7, 2), (123, 999), (5, 40))])
+    pos = np.array([0, 130, 4095, 611])
+    V = 32000
+    out = {}
+    for dev in ("cpu", device):
+        k = prng.fold_in(torch.from_numpy(keys.astype(np.int64)).to(dev),
+                         torch.from_numpy(pos).to(dev))
+        out[dev] = (prng.random_bits(k, V).cpu(), prng.uniform(k, V).cpu(),
+                    gumbel_noise(keys, pos, V, dev).cpu().numpy())
+    (b0, u0, g0), (b1, u1, g1) = out["cpu"], out[device]
+    check(torch.equal(b0, b1), "threefry bits on the card != the CPU's")
+    check(torch.equal(u0, u1), "uniforms on the card != the CPU's")
+    spacing = np.spacing(np.maximum(np.abs(g0), 1).astype(np.float32))
+    ulps = float((np.abs(g1.astype(np.float64) - g0) / spacing).max())
+    check(np.isfinite(g1).all() and ulps <= 2,
+          f"gumbel on the card {ulps} ulp from the CPU's (> 2)")
+    return ulps, float((g0 != g1).mean())
+
+
+# ------------------------------------------------------- the UPIR kernel path
+
+# tests/test_kernels.py's tolerances, at its shapes
+TEST_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
+            "bfloat16": dict(rtol=2e-1, atol=2e-1)}
+# (kernel, dtype, operand shapes, the TPU tiles, input scale):
+# tests/test_kernels.py's shapes and dtypes ...
+PAPER_TEST_CASES = [
+    *[("axpy", dt, [(n,), (n,)], dict(block=b), 1.0)
+      for n, b in ((512, 128), (4096, 1024), (2048, 2048))
+      for dt in ("float32", "bfloat16")],
+    *[("matmul", dt, [(m, k), (k, n)], dict(bm=bm, bn=bn, bk=bk), 0.3)
+      for m, k, n, bm, bn, bk in ((256, 256, 256, 128, 128, 128),
+                                  (512, 384, 256, 128, 128, 128),
+                                  (128, 512, 128, 128, 128, 256))
+      for dt in ("float32", "bfloat16")],
+    *[("matvec", "float32", [(m, k), (k,)], dict(bm=256, bk=256), 1.0)
+      for m, k in ((512, 512), (1024, 256))],
+    *[("stencil2d", "float32", [(m, n)], dict(bm=bm, bn=bn), 1.0)
+      for m, n, bm, bn in ((256, 256, 128, 128), (128, 384, 64, 128))],
+]
+# ... and full size, at which the card does real work
+PAPER_FULL_CASES = [
+    ("axpy", "float32", [(1 << 28,), (1 << 28,)], {}, 1.0),
+    ("matvec", "float32", [(32768, 32768), (32768,)], {}, 1.0),
+    ("stencil2d", "float32", [(16384, 16384)], {}, 1.0),
+    ("matmul", "bfloat16", [(8192, 8192), (8192, 8192)], {}, 1.0),
+    ("matmul", "float32", [(8192, 8192), (8192, 8192)], {}, 1.0),
+]
+AXPY_A = 2.5
+
+
+def paper_operands(torch, kernel, dtype, shapes, scale, seed, device):
+    """Operands made on the card from a seeded generator (full-size inputs
+    are GBs: nothing is made on the host)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    args = [(torch.randn(s, generator=gen, device=device) * scale).to(
+        getattr(torch, dtype)) for s in shapes]
+    return [AXPY_A] + args if kernel == "axpy" else args
+
+
+def upir_case(torch, kernel, dtype, shapes, tiles, scale, seed, device,
+              full):
+    """One kernel call through the UPIR path; returns the max abs error of
+    the simd (kernel) output against the worksharing (oracle) output."""
+    from repro_torch.core import printer
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.programs import frontend_programs, symbols_of
+    args = paper_operands(torch, kernel, dtype, shapes, scale, seed, device)
+    extent = args[1].shape[0] if kernel == "axpy" else args[0].shape[0]
+    syms = symbols_of(kernel, args)
+    progs = {simd: frontend_programs(kernel, syms, extent, simd=simd)
+             for simd in (True, False)}
+    for simd, p in progs.items():
+        check(p["omp"] == p["acc"] == p["cuda"],
+              f"{kernel}: the OpenMP, OpenACC and CUDA programs differ "
+              f"({'simd' if simd else 'worksharing'})")
+    fps = [printer.program_fingerprint(progs[s]["cuda"]) for s in (True,
+                                                                    False)]
+    fn = ops.lower_kernel_program(progs[True]["cuda"])
+    oracle = ops.lower_kernel_program(progs[False]["omp"])
+    check(fn is ops.SIMD[kernel] and oracle is ops.REFERENCE[kernel],
+          f"{kernel}: simd must lower to cuda, worksharing to reference")
+    before = fn.launches
+    got = fn(*args, **tiles)
+    torch.cuda.synchronize()
+    check(fn.launches == before + 1,
+          f"{kernel}: the simd program did not launch the CUDA kernel")
+    want = oracle(*args)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{kernel}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{kernel}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    shape = "x".join(map(str, shapes[0]))
+    what = f"{kernel} {dtype} {shape}"
+    if kernel in ("axpy", "stencil2d") and dtype == "float32":
+        check(torch.equal(got, want), f"{what}: not bitwise equal to the "
+              f"worksharing (plain) output, max err {err}")
+        rule = "bitwise"
+    elif full:
+        bound = ref.error_bound(kernel, args, want)
+        check(bool((diff <= bound).all()),
+              f"{what}: max err {err} beyond kernels.ref.error_bound")
+        rule = "within kernels.ref.error_bound"
+    else:
+        check(torch.allclose(got.float(), want.float(), **TEST_TOL[dtype]),
+              f"{what}: max err {err} beyond {TEST_TOL[dtype]}")
+        rule = f"within {TEST_TOL[dtype]}"
+    print(f"upir[{what}]: omp == acc == cuda (simd {fps[0]}, worksharing "
+          f"{fps[1]}); simd -> CUDA kernel, worksharing -> plain; max "
+          f"|simd - worksharing| {err:.3g} ({rule})", flush=True)
+    return err
+
+
+def upir_phase(torch, seed, device):
+    """The paper's kernel path at the test shapes, then at full size; every
+    tensor of one case is freed before the next. Returns the full-size max
+    errors by (kernel, dtype)."""
+    for i, (kernel, dtype, shapes, tiles, scale) in enumerate(
+            PAPER_TEST_CASES):
+        upir_case(torch, kernel, dtype, shapes, tiles, scale, seed + i,
+                  device, full=False)
+    errs = {}
+    for i, (kernel, dtype, shapes, tiles, scale) in enumerate(
+            PAPER_FULL_CASES):
+        errs[kernel, dtype] = upir_case(torch, kernel, dtype, shapes, tiles,
+                                        scale, seed + 100 + i, device,
+                                        full=True)
+        torch.cuda.empty_cache()
+    return errs
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -353,6 +510,93 @@ def time_kernels(torch, np, seed, limits, launches, device):
         "library_ms": library_ms}]
 
 
+def paper_work(kernel, dtype, shapes):
+    """(bytes, operations) the function must move and do: each input read
+    once, the output written once; 2 flops per multiply-add."""
+    size = 2 if dtype == "bfloat16" else 4
+    if kernel == "axpy":
+        (n,), _ = shapes
+        return 3 * n * size, 2 * n
+    if kernel == "matvec":
+        (m, k), _ = shapes
+        return (m * k + k + m) * size, 2 * m * k
+    if kernel == "stencil2d":
+        (m, n), = shapes
+        return 2 * m * n * size, 6 * m * n
+    (m, k), (_, n) = shapes
+    return (m * k + k * n + m * n) * size, 2 * m * n * k
+
+
+def time_paper_kernels(torch, seed, errs, launches, device):
+    """Each paper kernel at full size: its time, the plain version's, one
+    library call's (TF32 off), and its bound. Timing launches do not
+    count."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=device)
+
+    def flush():
+        scratch.zero_()                     # 256 MB > the 50 MB L2
+
+    def library(kernel, args):
+        if kernel == "axpy":
+            return lambda: torch.add(args[2], args[1], alpha=args[0])
+        if kernel == "matvec":
+            return lambda: torch.mv(*args)
+        if kernel == "matmul":
+            return lambda: torch.matmul(*args)
+        cross = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0],
+                              [0.0, 1.0, 0.0]], device=device)[None, None]
+        u = args[0][None, None]
+        return lambda: F.conv2d(u, cross, padding=1)
+
+    rows = {}
+    for i, (kernel, dtype, shapes, _, scale) in enumerate(PAPER_FULL_CASES):
+        args = paper_operands(torch, kernel, dtype, shapes, scale,
+                              seed + 200 + i, device)
+        fn, plain = ops.SIMD[kernel], ops.REFERENCE[kernel]
+        saved = fn.launches
+        ms_big = {"matmul": 5 if dtype == "float32" else 10}.get(kernel, 20)
+        ms = time_cuda(lambda: fn(*args), ms_big, flush)
+        plain_ms = time_cuda(lambda: plain(*args), ms_big, flush)
+        library_ms = time_cuda(library(kernel, args), ms_big, flush)
+        fn.launches = saved
+        n_bytes, ops_n = paper_work(kernel, dtype, shapes)
+        peak = BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_n / peak * 1e3
+        rows[kernel, dtype] = {
+            "name": kernel, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+            "replaces": PAPER_REPLACES[kernel],
+            "launches": launches[kernel], "max_abs_err": errs[kernel, dtype],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "dtype": dtype,
+            "shape": [list(s) for s in shapes]}
+        print(f"kernel {kernel} {dtype} {shapes}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, library {library_ms:.4f}, bound "
+              f"{rows[kernel, dtype]['bound_ms']:.4f} by "
+              f"{rows[kernel, dtype]['bound_by']})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    # one entry per kernel: matmul's is bfloat16, with float32 beside it
+    out = [rows["axpy", "float32"], rows["matvec", "float32"],
+           rows["stencil2d", "float32"], rows["matmul", "bfloat16"]]
+    out[-1]["float32"] = {k: rows["matmul", "float32"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "shape")}
+    return out
+
+
+PAPER_REPLACES = {"axpy": "src/repro/kernels/axpy.py:18",
+                  "matvec": "src/repro/kernels/matvec.py:31",
+                  "stencil2d": "src/repro/kernels/stencil2d.py:34",
+                  "matmul": "src/repro/kernels/matmul.py:31"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -393,6 +637,24 @@ def main() -> int:
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
     t0 = time.perf_counter()
+    ulps, frac = threefry_check(torch, np, device)
+    print(f"threefry on the card: bits and uniforms equal the CPU's; gumbel "
+          f"within {ulps:.1f} ulp of max(|g|, 1) (tol 2), {frac:.4f} of the "
+          f"values differ [{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    for fn in ops.SIMD.values():
+        fn.launches = 0
+    errs = upir_phase(torch, args.seed, device)
+    paper_launches = {name: fn.launches for name, fn in ops.SIMD.items()}
+    check(all(n > 0 for n in paper_launches.values()),
+          f"a paper kernel never launched on the UPIR path: {paper_launches}")
+    print(f"upir: {len(PAPER_TEST_CASES) + len(PAPER_FULL_CASES)} kernel "
+          f"calls through lower_kernel_program, launches {paper_launches} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    t0 = time.perf_counter()
     res = serve(torch, np, args, device)
     torch.cuda.synchronize()
     print(f"serve: one-shot {res['oneshot']['tokens_per_s']:.1f} tok/s, "
@@ -404,12 +666,18 @@ def main() -> int:
 
     kernels = time_kernels(torch, np, args.seed, res["serve_limits"],
                            res["oneshot"]["launches"], device)
-    for k in kernels:
-        print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain "
-              f"{k['plain_ms']:.4f}, sdpa {k['library_ms']:.4f}, bound "
-              f"{k['bound_ms']:.4f} by {k['bound_by']}: bytes over "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s, the H100 SXM data-sheet HBM3 "
-              f"rate, the least time any kernel needs to move them) on {card}")
+    kernels += time_paper_kernels(torch, args.seed, errs, paper_launches,
+                                  device)
+    k = kernels[0]
+    print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain "
+          f"{k['plain_ms']:.4f}, sdpa {k['library_ms']:.4f}, bound "
+          f"{k['bound_ms']:.4f} by {k['bound_by']}: bytes over "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s, the H100 SXM data-sheet HBM3 "
+          f"rate, the least time any kernel needs to move them) on {card}")
+    print(f"bounds: bytes over {HBM_BYTES_PER_S / 1e12} TB/s, operations "
+          f"over {BF16_FLOPS / 1e12} TFLOP/s (bf16 tensor cores) or "
+          f"{FP32_FLOPS / 1e12} TFLOP/s (float32 CUDA cores), H100 SXM data "
+          f"sheet; times on {card}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -17,15 +17,14 @@ token's K/V (the deferred insert) stays outside the kernel, in
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from ..models.layers import NEG, gather_kv_pages
+from ._cuda import DTYPE_CODES, FLOAT, INT, PTR, function, launch
 
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def paged_attention_partial_ref(q, k_pages, v_pages, page_table, limit, *,
@@ -55,7 +54,6 @@ def paged_attention_partial_ref(q, k_pages, v_pages, page_table, limit, *,
 
 
 def _launch_cuda(q, k_pages, v_pages, page_table, limit, window):
-    from .build import library
     B, _, H, hd = q.shape
     NP, PS, KV, _ = k_pages.shape
     P = page_table.shape[1]
@@ -63,7 +61,7 @@ def _launch_cuda(q, k_pages, v_pages, page_table, limit, window):
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+    if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes {q.dtype}/{k_pages.dtype}/"
                          f"{v_pages.dtype}: need one of float32, bfloat16")
@@ -82,19 +80,13 @@ def _launch_cuda(q, k_pages, v_pages, page_table, limit, window):
     out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
     m = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
     l = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
-    fn = library("paged_attention").paged_attention_partial_launch
-    if not fn.argtypes:      # ctypes keeps one function object per library
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), limit.data_ptr(), out.data_ptr(),
-             m.data_ptr(), l.data_ptr(), B, KV, G, hd, PS, P, int(window),
-             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention_partial kernel launch failed: "
-                           f"cudaError {err}")
+    fn = function("paged_attention", "paged_attention_partial_launch",
+                  [PTR] * 8 + [INT] * 7 + [FLOAT, INT])
+    launch("paged_attention_partial", fn, q.device, q.data_ptr(),
+           k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+           limit.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B,
+           KV, G, hd, PS, P, int(window), 1.0 / math.sqrt(hd),
+           DTYPE_CODES[q.dtype])
     paged_attention_partial.launches += 1
     return out, m, l
 

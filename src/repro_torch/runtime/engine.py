@@ -134,8 +134,9 @@ class Request:
     _first_tok: Any = None
     _admit_seq: int = 0            # monotonic admission order (eviction policy)
     _chunk_cursor: int = 0         # chunked prefill progress
-    # PRNG key snapshot: taken at materialization and never reset, so
-    # eviction-by-recompute replays a sampled stream identically
+    # PRNG key snapshot (the reference's threefry key, uint32[2]): taken at
+    # materialization and never reset, so eviction-by-recompute replays a
+    # sampled stream identically
     _key: Any = None
 
 
@@ -476,7 +477,7 @@ class Engine:
                                     device=dev)
         self.counts = torch.zeros((ecfg.slots, cfg.vocab), dtype=torch.int32,
                                   device=dev)
-        self.keys_np = np.zeros((ecfg.slots,), np.int64)
+        self.keys_np = np.zeros((ecfg.slots, 2), np.int64)   # uint32 words
         self.temps_np = np.zeros((ecfg.slots,), np.float32)
         self.topks_np = np.zeros((ecfg.slots,), np.int64)
         self.topps_np = np.ones((ecfg.slots,), np.float32)

@@ -10,25 +10,26 @@ The same policy law as the JAX package's ``runtime/sampling.py``:
 
 2. **Replay determinism.** Randomness is a pure function of the request's key
    and the *position* being sampled, not of how many steps the engine ran:
-   :func:`gumbel_noise` draws each row's noise from a generator seeded by
-   ``(key, pos)``, so eviction-by-recompute replays a sampled stream exactly.
-   The token emitted after processing position ``p`` is sampled at ``p``.
+   :func:`gumbel_noise` draws row ``b``'s noise as
+   ``gumbel(fold_in(key_b, pos_b))``, so eviction-by-recompute replays a
+   sampled stream exactly. The token emitted after processing position ``p``
+   is sampled at ``p``.
 
-:func:`sample_tokens` takes the Gumbel noise as an argument, so the tests can
-feed it the reference's ``jax.random.gumbel(fold_in(key, pos))`` noise and
-compare the chosen tokens bitwise. The port's own noise comes from
-``torch.Generator`` and is not the reference's: sampled streams agree with the
-reference in law, and bitwise only inside the port.
+The keys and the noise are the reference's own: ``runtime/prng.py`` is a copy
+of JAX's threefry-2x32 sampler in integer tensor ops, so the request keys and
+the uniform bits equal ``jax.random``'s bit for bit, and the Gumbel values
+differ from XLA's only where the two ``log`` implementations round apart (at
+most 2 ulp of ``max(|g|, 1)``). :func:`sample_tokens` takes the noise as an
+argument, so the tests can also feed it the reference's noise directly.
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 
+import numpy as np
 import torch
 
-MASK_MIX = 0x9E3779B97F4A7C15    # golden-ratio increment of splitmix64
-_U64 = (1 << 64) - 1
+from . import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,35 +72,31 @@ class SamplingParams:
 GREEDY = SamplingParams()
 
 
-def request_key(sampling: SamplingParams, rid: int) -> int:
-    """The request's 63-bit PRNG key, snapshotted at admission. Derived only
-    from user-visible fields — (seed, rid) — so two engines fed the same
-    workload in the same order sample identical streams."""
-    digest = hashlib.sha256(f"{sampling.seed}/{rid}".encode()).digest()
-    return int.from_bytes(digest[:8], "little") >> 1
-
-
-def position_seed(key: int, pos: int) -> int:
-    """Seed of the generator that samples position ``pos`` of a request:
-    a splitmix64 mix of (key, pos)."""
-    z = (int(key) + (int(pos) + 1) * MASK_MIX) & _U64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
-    return (z ^ (z >> 31)) >> 1
+def request_key(sampling: SamplingParams, rid: int) -> np.ndarray:
+    """The request's PRNG key (uint32[2]), snapshotted at admission: the
+    reference's ``fold_in(PRNGKey(seed), rid)``. Derived only from
+    user-visible fields — (seed, rid) — so two engines fed the same workload
+    in the same order sample identical streams."""
+    return prng.fold_in(prng.PRNGKey(sampling.seed), rid).numpy().astype(
+        np.uint32)
 
 
 def gumbel_noise(keys, positions, vocab: int, device, rows=None):
-    """Gumbel noise ``[B, vocab]`` float32: row ``b`` drawn from a generator
-    seeded by ``(keys[b], positions[b])``. ``rows`` (default: all) lists the
-    rows that need noise; the others stay zero (greedy rows ignore it)."""
-    keys, positions = list(keys), list(positions)
+    """Gumbel noise ``[B, vocab]`` float32: row ``b`` is the reference's
+    ``jax.random.gumbel(fold_in(keys[b], positions[b]), (vocab,))``. ``keys``
+    [B, 2] uint32 words; ``rows`` (default: all) lists the rows that need
+    noise, drawn in one batched call on ``device``; the others stay zero
+    (greedy rows ignore it)."""
+    keys = np.asarray(keys, np.int64).reshape(-1, 2)
+    positions = np.asarray(positions, np.int64).reshape(-1)
+    rows = list(range(len(keys)) if rows is None else rows)
     out = torch.zeros((len(keys), vocab), dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    gen = torch.Generator(device=device)
-    for b in (range(len(keys)) if rows is None else rows):
-        gen.manual_seed(position_seed(keys[b], positions[b]))
-        u = torch.rand((vocab,), generator=gen, device=device)
-        out[b] = -torch.log(-torch.log(u.clamp_min(tiny)))
+    if rows:
+        # fancy indexing copies: the host arrays may change after the upload
+        k = torch.from_numpy(keys[rows]).to(device)
+        p = torch.from_numpy(positions[rows]).to(device)
+        out[torch.tensor(rows, device=device)] = prng.gumbel(
+            prng.fold_in(k, p), vocab)
     return out
 
 

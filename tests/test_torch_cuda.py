@@ -5,19 +5,25 @@ They skip where there is no card; on one, run them with
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 This file imports neither ``jax`` nor the JAX package, so it runs on a
-machine that has only PyTorch: the CUDA kernel is held against its plain
-PyTorch version, and the engine on the card against ``serve_sequential``.
+machine that has only PyTorch: each CUDA kernel is held against its plain
+PyTorch version, the engine on the card against ``serve_sequential``, and
+the threefry noise on the card against the same noise on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import smoke_config
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels.programs import frontend_programs, symbols_of
 from repro_torch.models import api
 from repro_torch.models.layers import NEG, attention_decode_paged
+from repro_torch.runtime import prng
 from repro_torch.runtime.engine import (Engine, EngineConfig, RequestSpec,
                                         serve_sequential)
+from repro_torch.runtime.sampling import (SamplingParams, gumbel_noise,
+                                          request_key)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.needs_cuda
@@ -114,3 +120,119 @@ def test_engine_on_the_card_equals_serve_sequential(cuda):
     seq = serve_sequential(cfg, params, specs, max_seq=14,
                            prompt_buckets=(8,), page_size=4, device=cuda)
     assert got == [seq["tokens"][i + 1] for i in range(len(specs))]
+
+
+# the paper kernels: (kernel, dtype, operand shapes, the TPU tiles): the
+# shapes of tests/test_kernels.py, odd shapes whose edges the kernels mask,
+# and one large shape each
+PAPER_CASES = [
+    ("axpy", "float32", [(512,), (512,)], dict(block=128)),
+    ("axpy", "bfloat16", [(4096,), (4096,)], dict(block=1024)),
+    ("axpy", "float32", [(1001,), (1001,)], {}),
+    ("axpy", "bfloat16", [(1 << 24,), (1 << 24,)], {}),
+    ("matvec", "float32", [(512, 512), (512,)], dict(bm=256, bk=256)),
+    ("matvec", "float32", [(1024, 256), (256,)], dict(bm=256, bk=256)),
+    ("matvec", "bfloat16", [(33, 37), (37,)], {}),
+    ("matvec", "float32", [(4096, 8192), (8192,)], {}),
+    ("stencil2d", "float32", [(256, 256)], dict(bm=128, bn=128)),
+    ("stencil2d", "float32", [(128, 384)], dict(bm=64, bn=128)),
+    ("stencil2d", "float32", [(37, 53)], {}),
+    ("stencil2d", "float32", [(4096, 4096)], {}),
+    ("matmul", "float32", [(256, 256), (256, 256)], dict(bm=128, bn=128,
+                                                         bk=128)),
+    ("matmul", "bfloat16", [(512, 384), (384, 256)], dict(bm=128, bn=128,
+                                                          bk=128)),
+    ("matmul", "bfloat16", [(128, 512), (512, 128)], dict(bm=128, bn=128,
+                                                          bk=256)),
+    ("matmul", "float32", [(100, 72), (72, 36)], {}),
+    ("matmul", "bfloat16", [(100, 72), (72, 36)], {}),
+    ("matmul", "bfloat16", [(2048, 1024), (1024, 4096)], {}),
+    ("matmul", "float32", [(2048, 1024), (1024, 512)], {}),
+]
+
+
+@pytest.mark.parametrize("kernel,dtype,shapes,tiles", PAPER_CASES,
+                         ids=[f"{k}-{d}-{'x'.join(map(str, s[0]))}"
+                              for k, d, s, _ in PAPER_CASES])
+def test_paper_kernel_matches_plain(cuda, kernel, dtype, shapes, tiles):
+    dt = getattr(torch, dtype)
+    args = [rnd(s, 80 + i).to(cuda, dt) for i, s in enumerate(shapes)]
+    if kernel == "axpy":
+        args = [2.5] + args
+    fn = ops.resolve(kernel, "cuda")
+    before = fn.launches
+    got = fn(*args, **tiles)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ops.resolve(kernel, "reference")(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    assert (err <= ref.error_bound(kernel, args, want)).all(), err.max()
+
+
+def test_paper_kernels_run_misaligned_operands(cuda):
+    """Views that start 4 bytes into their storage take the element loads."""
+    buf = rnd((3, 1030), 90).to(cuda)
+    x, y = buf[0, 1:1025], buf[1, 3:1027]
+    got = ops.resolve("axpy", "cuda")(-1.5, x, y)
+    assert torch.equal(got, ref.axpy(-1.5, x, y))
+    a = rnd((64 * 128 + 1,), 91).to(cuda)[1:].view(64, 128)
+    b = rnd((129,), 92).to(cuda)[1:]
+    for kernel, args in (("matvec", (a, b)), ("matmul", (a, a.T[:, :1]
+                                                          .contiguous()))):
+        got = ops.resolve(kernel, "cuda")(*args)
+        want = getattr(ref, kernel)(*args)
+        assert ((got - want).abs()
+                <= ref.error_bound(kernel, args, want)).all()
+
+
+def test_paper_kernels_refuse_what_they_do_not_take(cuda):
+    x = rnd((256,), 93).to(cuda)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.resolve("axpy", "cuda")(1.0, x.half(), x.half())
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.resolve("stencil2d", "cuda")(x.reshape(16, 16).bfloat16())
+    with pytest.raises(ValueError, match="on"):
+        ops.resolve("matvec", "cuda")(x.reshape(16, 16), x[:16].cpu())
+
+
+@pytest.mark.parametrize("kernel", ["axpy", "matvec", "stencil2d", "matmul"])
+def test_simd_program_launches_the_kernel(cuda, kernel):
+    args = {"axpy": lambda: (2.5, rnd((512,), 1).to(cuda),
+                             rnd((512,), 2).to(cuda)),
+            "matvec": lambda: (rnd((256, 128), 3).to(cuda),
+                               rnd((128,), 4).to(cuda)),
+            "stencil2d": lambda: (rnd((64, 96), 5).to(cuda),),
+            "matmul": lambda: (rnd((128, 64), 6).to(cuda, torch.bfloat16),
+                               rnd((64, 32), 7).to(cuda, torch.bfloat16))
+            }[kernel]()
+    extent = args[1].shape[0] if kernel == "axpy" else args[0].shape[0]
+    syms = symbols_of(kernel, args)
+    simd = frontend_programs(kernel, syms, extent, simd=True)["cuda"]
+    work = frontend_programs(kernel, syms, extent, simd=False)["cuda"]
+    fn = ops.lower_kernel_program(simd)
+    before = fn.launches
+    got = fn(*args)
+    want = ops.lower_kernel_program(work)(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert ((got.float() - want.float()).abs()
+            <= ref.error_bound(kernel, args, want)).all()
+
+
+def test_threefry_noise_on_the_card_equals_the_cpu(cuda):
+    keys = np.stack([request_key(SamplingParams(seed=s), rid)
+                     for s, rid in ((0, 1), (7, 2), (123, 999))])
+    pos = np.array([0, 130, 4095])
+    for dev in ("cpu", cuda):
+        k = prng.fold_in(torch.from_numpy(keys.astype(np.int64)).to(dev),
+                         torch.from_numpy(pos).to(dev))
+        if dev == "cpu":
+            bits, uni = prng.random_bits(k, 32000), prng.uniform(k, 32000)
+        else:
+            assert torch.equal(prng.random_bits(k, 32000).cpu(), bits)
+            assert torch.equal(prng.uniform(k, 32000).cpu(), uni)
+    want = gumbel_noise(keys, pos, 32000, "cpu").numpy()
+    got = gumbel_noise(keys, pos, 32000, cuda).cpu().numpy()
+    spacing = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32))
+    assert (np.abs(got.astype(np.float64) - want) <= 2 * spacing).all()

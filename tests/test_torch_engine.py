@@ -1,8 +1,10 @@
 """The port's serving engine vs the JAX package, on the CPU at the smoke size.
 
-Reference streams come from a test-side greedy loop over the JAX package's
+Reference streams come from a test-side loop over the JAX package's
 ``api.prefill`` and ``api.decode_step_paged``, fed fresh numpy inputs that
-nothing changes after the call — not from the reference ``Engine``, whose
+nothing changes after the call; its tokens are the argmax, or for sampled
+workloads the JAX package's ``sampling.sample_tokens``, which draws
+``gumbel(fold_in(request_key, pos))`` — not from the reference ``Engine``, whose
 in-place host buffers race jax's asynchronous CPU dispatch (ROADMAP Q3).
 Nothing here changes JAX's configuration.
 
@@ -24,6 +26,7 @@ from repro.configs import smoke_config as jsmoke
 from repro.core.lower import path_str
 from repro.models import api as japi
 from repro.models.layers import cache_write_pages as j_write_pages
+from repro.runtime import sampling as jsamp
 from repro_torch.configs import smoke_config
 from repro_torch.convert import from_reference
 from repro_torch.core.lower import PlanCache
@@ -59,14 +62,26 @@ def prompts(n, length=BUCKET, seed=0):
     return [rng.integers(0, CFG.vocab, size=length).tolist() for _ in range(n)]
 
 
-def reference_streams(jp, work):
-    """Greedy streams of the JAX package, one request at a time through its
-    paged decode step; every input is a fresh array."""
+def reference_streams(jp, work, sampling=None, trace=None):
+    """Streams of the JAX package, one request at a time through its paged
+    decode step; every input is a fresh array. Greedy takes the argmax; a
+    ``sampling`` policy samples with the request key of rid ``index + 1``
+    (the rids a fresh engine assigns) at each position. ``trace`` (a list)
+    collects each request's (position, f32 logits) per emitted token."""
     pages = -(-MAX_SEQ // PAGE)
     decode = jax.jit(functools.partial(japi.decode_step_paged, JC))
     table = np.arange(1, pages + 1, dtype=np.int32)[None, :]
     out = []
-    for prompt, n in work:
+    for rid, (prompt, n) in enumerate(work, start=1):
+        steps = []
+
+        def pick(logits, pos):
+            lg = np.asarray(logits[0, -1], np.float32)
+            steps.append((pos, lg))
+            if sampling is None or sampling.greedy:
+                return int(np.argmax(lg))
+            return int(reference_select(lg, sampling, rid, pos))
+
         toks = np.zeros((1, BUCKET), np.int32)
         toks[0, :len(prompt)] = prompt
         n_pre = -(-BUCKET // PAGE)
@@ -76,15 +91,40 @@ def reference_streams(jp, work):
         ids = jnp.asarray(np.arange(1, n_pre + 1, dtype=np.int32))
         pool = {"k_pages": j_write_pages(pool["k_pages"], cache["k"], ids),
                 "v_pages": j_write_pages(pool["v_pages"], cache["v"], ids)}
-        stream = [int(np.argmax(np.asarray(logits[0, -1], np.float32)))]
+        stream = [pick(logits, BUCKET - 1)]
         for i in range(n - 1):
             batch = {"tokens": jnp.asarray(np.array([[stream[-1]]], np.int32)),
                      "pos": jnp.asarray(np.array([BUCKET + i], np.int32))}
             logits, pool = decode(jp, pool, jnp.asarray(table.copy()), batch)
-            stream.append(int(np.argmax(np.asarray(logits[0, -1],
-                                                   np.float32))))
+            stream.append(pick(logits, BUCKET + i))
         out.append(stream)
+        if trace is not None:
+            trace.append(steps)
     return out
+
+
+_jsample = jax.jit(jsamp.sample_tokens)
+
+
+def reference_select(lg, sampling, rid, pos, scores=False):
+    """The JAX package's sampled token at ``pos`` of request ``rid``; with
+    ``scores`` its perturbed scores (masked, scaled logits + Gumbel)."""
+    js = jsamp.SamplingParams(temperature=sampling.temperature,
+                              top_k=sampling.top_k, top_p=sampling.top_p,
+                              seed=sampling.seed)
+    key = jnp.asarray(jsamp.request_key(js, rid)[None])
+    temps = jnp.asarray([js.temperature], jnp.float32)
+    top_ks = jnp.asarray([js.top_k], jnp.int32)
+    top_ps = jnp.asarray([js.top_p], jnp.float32) if js.top_p < 1.0 else None
+    lg = jnp.asarray(lg[None])
+    if not scores:
+        return _jsample(lg, key, jnp.asarray([pos], jnp.int32), temps,
+                        top_ks, top_ps)[0]
+    masked = jnp.where(jsamp.policy_mask(lg, top_ks, top_ps),
+                       lg / temps[:, None], -jnp.inf)
+    gum = jax.random.gumbel(jax.random.fold_in(key[0], pos), lg.shape[-1:],
+                            jnp.float32)
+    return np.asarray(masked[0] + gum)
 
 
 def engine(tp, slots=2, num_pages=0, prefill_chunk=0, **kw):
@@ -155,6 +195,45 @@ def test_chunked_equals_oneshot_and_counts_chunks(params):
 
 
 SAMPLED = SamplingParams(temperature=0.9, top_k=40, top_p=0.9, seed=5)
+# a sampled stream may leave the reference's only where two tokens' perturbed
+# scores are this close: the port's f32 logits agree with the reference's to
+# ~1e-6 at the smoke size, and its Gumbel noise to 2 ulp (~4e-6 at |g| < 16)
+SCORE_TIE = 1e-4
+
+
+# the sampled workloads of tests/test_engine.py, at this file's smoke size
+@pytest.mark.parametrize("sampling,slots,num_pages,chunk,n", [
+    (SamplingParams(temperature=0.9, top_k=4, seed=7), 2, 0, 0, 4),
+    (SamplingParams(temperature=1.2, top_p=0.7, seed=5), 2, 0, 0, 4),
+    (SamplingParams(temperature=1.0, seed=7), 4, 10, 0, 6),
+    (SamplingParams(temperature=1.2, top_k=16, seed=3), 2, 0, PAGE, 4),
+    (SAMPLED, 2, 0, PAGE, 4),
+], ids=["top_k", "top_p", "eviction", "chunked", "top_k_top_p"])
+def test_sampled_streams_equal_reference(params, sampling, slots, num_pages,
+                                         chunk, n):
+    jp, tp = params
+    work = [(p, TOKENS) for p in prompts(n, seed=13)]
+    e = engine(tp, slots=slots, num_pages=num_pages, prefill_chunk=chunk)
+    got = run(e, work, sampling=sampling)
+    if num_pages:
+        assert e.stats()["evictions"] > 0
+    trace = []
+    want = reference_streams(jp, work, sampling, trace)
+    assert any(t != int(np.argmax(lg))             # it really sampled
+               for w, steps in zip(want, trace)
+               for t, (_, lg) in zip(w, steps))
+    differ = 0
+    for rid, (g, w) in enumerate(zip(got, want), start=1):
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        differ += 1
+        pos, lg = trace[rid - 1][j]
+        sc = reference_select(lg, sampling, rid, pos, scores=True)
+        assert abs(sc[g[j]] - sc[w[j]]) <= SCORE_TIE, (
+            f"request {rid} leaves the reference at token {j} where the "
+            f"scores are no near-tie")
+    print(f"sampled streams differing from the reference: {differ}/{n}")
 
 
 def test_sampled_replay_after_eviction(params):

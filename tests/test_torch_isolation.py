@@ -43,9 +43,16 @@ def test_port_has_the_modules_of_its_slice():
                  "models/transformer.py", "models/api.py",
                  "kernels/paged_attention.py", "runtime/sampling.py",
                  "runtime/scheduling.py", "runtime/server.py",
-                 "runtime/engine.py", "launch/serve.py", "convert.py"):
+                 "runtime/engine.py", "launch/serve.py", "convert.py",
+                 "runtime/prng.py", "core/frontends/__init__.py",
+                 "core/frontends/omp.py", "core/frontends/acc.py",
+                 "core/frontends/cuda.py", "core/unparse.py",
+                 "kernels/ref.py", "kernels/axpy.py", "kernels/matvec.py",
+                 "kernels/stencil2d.py", "kernels/matmul.py",
+                 "kernels/ops.py", "kernels/programs.py"):
         assert want in names
-    assert (REPO / "src/repro_torch/kernels/csrc/paged_attention.cu").exists()
+    for cu in ("paged_attention", "axpy", "matvec", "stencil2d", "matmul"):
+        assert (REPO / f"src/repro_torch/kernels/csrc/{cu}.cu").exists()
 
 
 @pytest.fixture
@@ -81,7 +88,8 @@ def test_torch_attention_refuses_cuda_tensors():
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import build
-    assert build.sources() == ["paged_attention"]
+    assert build.sources() == ["axpy", "matmul", "matvec", "paged_attention",
+                               "stencil2d"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build, "Path", lambda *_: tmp_path / "no-nvcc")

@@ -125,7 +125,10 @@ def test_sample_tokens_with_reference_noise(ties, use_p, penalized):
 def test_noise_is_keyed_by_request_and_position():
     k1 = ts.request_key(ts.SamplingParams(seed=1), 1)
     k2 = ts.request_key(ts.SamplingParams(seed=1), 2)
-    assert k1 == ts.request_key(ts.SamplingParams(seed=1), 1) and k1 != k2
+    assert np.array_equal(k1, ts.request_key(ts.SamplingParams(seed=1), 1))
+    assert not np.array_equal(k1, k2)
+    np.testing.assert_array_equal(
+        k1, js.request_key(js.SamplingParams(seed=1), 1))
     a = ts.gumbel_noise([k1, k2], [5, 5], V, "cpu")
     b = ts.gumbel_noise([k1, k2], [5, 5], V, "cpu")
     c = ts.gumbel_noise([k1, k2], [6, 5], V, "cpu")
@@ -134,3 +137,8 @@ def test_noise_is_keyed_by_request_and_position():
     assert torch.equal(a[1], c[1])
     only = ts.gumbel_noise([k1, k2], [5, 5], V, "cpu", rows=[1])
     assert (only[0] == 0).all() and torch.equal(only[1], a[1])
+    # threefry noise: the reference's, within 2 ulp of max(|g|, 1) (the two
+    # frameworks' log round apart; the uniform bits are equal)
+    want = jax_noise(np.stack([k1, k2]), np.array([5, 5], np.int32))
+    spacing = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32))
+    assert (np.abs(a.numpy().astype(np.float64) - want) <= 2 * spacing).all()

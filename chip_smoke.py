@@ -33,17 +33,41 @@ In order:
    two outputs must agree: float32 axpy and stencil bit for bit, the rest
    within the tolerances of the JAX package's kernel test at its shapes and
    within ``kernels.ref.error_bound`` at full size (axpy n = 2^28, matvec
-   32768^2, stencil 16384^2, matmul 8192^3 in bfloat16 and float32);
-6. times each kernel (paged attention at the serving shape, the paper kernels
-   at full size) beside its bound, its plain version and one library call,
-   and prints the ``kernels`` JSON line, the card's name and power limit, and
-   last the ``{"ok": true, ...}`` line.
+   32768^2, stencil 16384^2, matmul 8192^3 in bfloat16 and float32); the
+   stencil also in bfloat16, bit for bit (both round after every op);
+6. holds the flash-attention and SSD chunk-scan kernels against their plain
+   versions: flash attention at the JAX package's kernel-test shapes (float32,
+   tolerance 2e-4) and at the zamba2 prefill shape [1, 512, 32, 80] in
+   bfloat16, and with a sliding window shorter than S (float32, and bfloat16
+   at [1, 1024, 32, 80], window 256); the SSD scan at the kernel-test shapes and one shorter than a
+   chunk (float32, 2e-3, with and without an initial state) and at the
+   zamba2 shape [1, 512, 80, 64] with N = 64 in bfloat16, y and the final
+   state against the sequential oracle; then both through the UPIR registry
+   (``kernels.ops.resolve(..., "cuda")``), one launch each;
+7. serves full-width ``zamba2-2.7b`` (54 Mamba2 layers and the shared
+   attention block every 6th, d 2560, random weights from ``--seed``) through
+   the port's ``Engine`` on the dense layout — 8 slots, ``HYBRID_REQUESTS``
+   (16) greedy requests of 100-500 prompt tokens, ``HYBRID_TOKENS`` (32) new
+   tokens each — and runs the same requests
+   through ``serve_sequential``. Checks: exactly 54 SSD-scan and 9
+   flash-attention launches per prefill; engine streams equal
+   ``serve_sequential``'s; in float32, the decode step's logits (the plain
+   recurrences) agree with a teacher-forced prefill's (the kernels) to 1e-3
+   of their scale. Prints decode tokens/s, TTFT p50/p99 and ms per decode
+   step;
+8. times each kernel (paged attention at the serving shape, flash attention
+   and the SSD scan at the zamba2 serving shape and at S = 4096, zamba2's
+   window, the paper kernels at full size) beside its bound, its plain
+   version and one library call where one exists, and prints the ``kernels``
+   JSON line (all seven kernels), the card's name and power limit, and last
+   the ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the last line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -355,6 +379,7 @@ PAPER_TEST_CASES = [
       for m, k in ((512, 512), (1024, 256))],
     *[("stencil2d", "float32", [(m, n)], dict(bm=bm, bn=bn), 1.0)
       for m, n, bm, bn in ((256, 256, 128, 128), (128, 384, 64, 128))],
+    ("stencil2d", "bfloat16", [(256, 256)], dict(bm=128, bn=128), 1.0),
 ]
 # ... and full size, at which the card does real work
 PAPER_FULL_CASES = [
@@ -411,7 +436,7 @@ def upir_case(torch, kernel, dtype, shapes, tiles, scale, seed, device,
     err = diff.max().item()
     shape = "x".join(map(str, shapes[0]))
     what = f"{kernel} {dtype} {shape}"
-    if kernel in ("axpy", "stencil2d") and dtype == "float32":
+    if kernel == "stencil2d" or (kernel == "axpy" and dtype == "float32"):
         check(torch.equal(got, want), f"{what}: not bitwise equal to the "
               f"worksharing (plain) output, max err {err}")
         rule = "bitwise"
@@ -591,6 +616,405 @@ def time_paper_kernels(torch, seed, errs, launches, device):
     return out
 
 
+# ------------------------------------------- flash attention and the SSD scan
+
+# tests/test_kernels.py's shape sets: flash (B, S, H, hd, bq, bk), SSD
+# (B, S, H, P, N, chunk); the SSD set adds a scan shorter than one chunk
+FLASH_TEST_SHAPES = [(2, 256, 4, 64, 64, 64), (1, 512, 2, 32, 128, 256)]
+SSD_TEST_SHAPES = [(2, 256, 4, 16, 8, 64), (1, 128, 2, 32, 16, 32),
+                   (1, 48, 2, 16, 8, 64)]
+# zamba2-2.7b's shapes on the serving path: the shared attention's prefill
+# (32 heads of 80, no GQA) and the Mamba2 scan (80 heads of 64, N = 64)
+FLASH_SERVE = (1, 512, 32, 80)
+SSD_SERVE = (1, 512, 80, 64, 64)
+LONG_S = 4096                                 # zamba2's attention window
+# flash with a window shorter than S: (B, S, H, hd, window, dtype)
+FLASH_WINDOW = [(1, 512, 4, 80, 128, "float32"),
+                (2, 300, 2, 64, 100, "float32"),
+                (1, 1024, 32, 80, 256, "bfloat16")]
+# the zamba2 serving phase: requests and new tokens per request
+HYBRID_REQUESTS = 16
+HYBRID_TOKENS = 32
+
+
+def bf16_bound(torch, want, got):
+    """Both versions sum in float32 from the same bfloat16 inputs and round
+    the output once: one bf16 ulp of the larger, 2^-7 |x|."""
+    return 2.0 ** -7 * torch.maximum(want.float().abs(), got.float().abs()) \
+        + 1e-6
+
+
+def flash_operands(torch, shape, dtype, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(shape, generator=gen, device=device) * 0.3).to(dtype)
+            for _ in range(3)]
+
+
+def ssd_operands(torch, shape, dtype, seed, device, h0=False):
+    B, S, H, P, N = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    x = (rn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(torch.rand(H, generator=gen, device=device))
+    Bm, Cm = (rn(B, S, N) * 0.5).to(dtype), (rn(B, S, N) * 0.5).to(dtype)
+    state = rn(B, H, P, N) * 0.3 if h0 else None
+    return x, dt, A, Bm, Cm, state
+
+
+def flash_ssm_checks(torch, seed, device):
+    """Both new kernels against their plain versions; returns the max abs
+    errors (float32 test shapes, bf16 serving shape) of each."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_chunk_scan
+    errs = {}
+    worst = 0.0
+    for i, (B, S, H, hd, bq, bk) in enumerate(FLASH_TEST_SHAPES):
+        for causal in (True, False):
+            q, k, v = flash_operands(torch, (B, S, H, hd), torch.float32,
+                                     seed + i, device)
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+            want = ref.flash_attention(q, k, v, causal=causal)
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+                  f"flash {B}x{S}x{H}x{hd} causal={causal}: max err {err}")
+            worst = max(worst, err)
+    q, k, v = flash_operands(torch, FLASH_SERVE, torch.bfloat16, seed + 9,
+                             device)
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    diff = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all()) and bool(
+        (diff <= bf16_bound(torch, want, got)).all()),
+        f"flash bf16 {FLASH_SERVE}: max err {diff.max().item()}")
+    errs["flash_attention"] = (worst, diff.max().item())
+    win = []
+    for i, (B, S, H, hd, window, dtype) in enumerate(FLASH_WINDOW):
+        q, k, v = flash_operands(torch, (B, S, H, hd), getattr(torch, dtype),
+                                 seed + 10 + i, device)
+        got = flash_attention(q, k, v, causal=True, bq=S, bk=S,
+                              window=window)
+        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        err = (got.float() - want.float()).abs()
+        tol = 2e-4 if dtype == "float32" else bf16_bound(torch, want, got)
+        check(bool(torch.isfinite(got).all()) and bool((err <= tol).all()),
+              f"flash {dtype} {B}x{S}x{H}x{hd} window {window}: max err "
+              f"{err.max().item()}")
+        win.append(f"{dtype} S {S} window {window}: {err.max().item():.3g}")
+    print(f"flash_attention vs plain: float32 test shapes max err {worst:.3g}"
+          f" (tol 2e-4), bf16 {list(FLASH_SERVE)} causal max err "
+          f"{diff.max().item():.3g} (tol 2^-7 |x|); windowed {'; '.join(win)}",
+          flush=True)
+
+    worst = worst_h = 0.0
+    for i, (B, S, H, P, N, chunk) in enumerate(SSD_TEST_SHAPES):
+        for h0 in (False, True):
+            x, dt, A, Bm, Cm, st = ssd_operands(torch, (B, S, H, P, N),
+                                                torch.float32, seed + 20 + i,
+                                                device, h0)
+            y, h = ssm_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=st)
+            wy, wh = ref.ssm_chunk_scan(x, dt, A, Bm, Cm, h0=st)
+            ey, eh = (y - wy).abs().max().item(), (h - wh).abs().max().item()
+            check(torch.allclose(y, wy, rtol=2e-3, atol=2e-3)
+                  and torch.allclose(h, wh, rtol=2e-3, atol=2e-3),
+                  f"ssm_scan {B}x{S}x{H}x{P} N={N} chunk={chunk} h0={h0}: "
+                  f"max err y {ey}, h {eh}")
+            worst, worst_h = max(worst, ey), max(worst_h, eh)
+    x, dt, A, Bm, Cm, _ = ssd_operands(torch, SSD_SERVE, torch.bfloat16,
+                                       seed + 29, device)
+    y, h = ssm_chunk_scan(x, dt, A, Bm, Cm, chunk=256)
+    wy, wh = ref.ssm_chunk_scan(x, dt, A, Bm, Cm)
+    diff = (y.float() - wy.float()).abs()
+    eh = (h - wh).abs().max().item()
+    check(bool(torch.isfinite(y).all()) and bool(
+        (diff <= 2e-3 + bf16_bound(torch, wy, y)).all())
+        and torch.allclose(h, wh, rtol=2e-3, atol=2e-3),
+        f"ssm_scan bf16 {SSD_SERVE}: max err y {diff.max().item()}, h {eh}")
+    errs["ssm_scan"] = (worst, diff.max().item())
+    print(f"ssm_scan vs the sequential oracle: float32 test shapes max err y "
+          f"{worst:.3g} h {worst_h:.3g} (tol 2e-3), bf16 {list(SSD_SERVE)} "
+          f"max err y {diff.max().item():.3g} (tol 2e-3 + 2^-7 |y|), final "
+          f"state {eh:.3g}", flush=True)
+
+    # the UPIR registry: the simd backend resolves to the kernels
+    from repro_torch.kernels import ops
+    fa, ss = ops.resolve("flash_attention", "cuda"), \
+        ops.resolve("ssm_scan", "cuda")
+    check(fa is flash_attention and ops.resolve("flash_attention",
+                                                "reference") is
+          ref.flash_attention, "flash_attention registry entries")
+    before = (fa.launches, ss.launches)
+    q, k, v = flash_operands(torch, (2, 256, 4, 64), torch.float32, seed,
+                             device)
+    check(torch.allclose(fa(q, k, v, bq=64, bk=64),
+                         ops.resolve("flash_attention")(q, k, v),
+                         rtol=2e-4, atol=2e-4), "resolved flash_attention")
+    x, dt, A, Bm, Cm, _ = ssd_operands(torch, SSD_TEST_SHAPES[0][:5],
+                                       torch.float32, seed, device)
+    check(torch.allclose(ss(x, dt, A, Bm, Cm, chunk=64),
+                         ref.ssm_chunk_scan(x, dt, A, Bm, Cm)[0],
+                         rtol=2e-3, atol=2e-3), "resolved ssm_scan")
+    torch.cuda.synchronize()
+    check((fa.launches, ss.launches) == (before[0] + 1, before[1] + 1),
+          "the registry's simd entries did not launch their kernels")
+    try:
+        ops.resolve("ssm_scan", "reference")
+        check(False, "ssm_scan has no reference entry, as in the reference")
+    except KeyError:
+        pass
+    print("registry: resolve('flash_attention'|'ssm_scan', 'cuda') launched "
+          "each kernel once; ssm_scan has no 'reference' entry", flush=True)
+    return errs
+
+
+def serve_hybrid(torch, np, args, device, buckets=(128, 256, 512),
+                 prompt_lens=(100, 500), max_seq=1024):
+    """Full-width zamba2-2.7b on the dense layout: engine (throughput and
+    latency mode), serve_sequential and a teacher-forced prefill check."""
+    from repro_torch.configs import config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models import api
+    from repro_torch.models.transformer import compute_params
+    from repro_torch.runtime.engine import (Engine, EngineConfig, RequestSpec,
+                                            serve_sequential)
+    cfg = config("zamba2-2.7b")
+    n_attn = len(range(0, cfg.n_layers, cfg.hybrid_attn_period))
+    rng = np.random.default_rng(args.seed + 7)
+    params = api.init_params(cfg, args.seed, device=device)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1,
+                        size=HYBRID_REQUESTS)
+    specs = [RequestSpec(tuple(int(t) for t in rng.integers(0, cfg.vocab, n)),
+                         HYBRID_TOKENS) for n in lens]
+
+    def engine():
+        return Engine(cfg, EngineConfig(kv_layout="dense", slots=8,
+                                        max_seq=max_seq,
+                                        prompt_buckets=buckets),
+                      params=params, device=device)
+
+    out = {}
+    eng = engine()
+    eng.run([RequestSpec((1,) * b, 2) for b in buckets])     # warm up
+    eng.reset_stats()
+    # the main path: every count at 0 just before it, read just after
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_partial
+    for fn in list(ops.SIMD.values()) + [paged_attention_partial]:
+        fn.launches = 0
+    reqs = eng.run(specs)
+    launches = {"ssm_scan": ssm_scan.launches,
+                "flash_attention": flash_attention.launches}
+    st = eng.stats()
+    streams = [eng.finalize_request(r) for r in reqs]
+    check(all(r.state == "done" for r in reqs), "zamba2: not all done")
+    check(all(len(x) == HYBRID_TOKENS for x in streams),
+          "zamba2: stream lengths")
+    check(st["prefills"] == len(specs), "zamba2: prefills")
+    check(launches["ssm_scan"] == st["prefills"] * cfg.n_layers,
+          f"zamba2: {launches['ssm_scan']} ssm_scan launches != "
+          f"{st['prefills']} prefills x {cfg.n_layers} layers")
+    check(launches["flash_attention"] == st["prefills"] * n_attn,
+          f"zamba2: {launches['flash_attention']} flash launches != "
+          f"{st['prefills']} prefills x {n_attn} attention layers")
+    # ms per decode step: the whole batch of slots, synchronised
+    dec = {"tokens": torch.zeros((8, 1), dtype=torch.int64, device=device),
+           "pos": torch.full((8,), 600, dtype=torch.int64, device=device)}
+    api.decode_step(cfg, eng.params, eng.cache, dec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        api.decode_step(cfg, eng.params, eng.cache, dec)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out.update(streams=streams, launches=launches, steps=st["decode_steps"],
+               prefills=st["prefills"], tokens_per_s=st["tokens_per_s"])
+    print(f"serve[zamba2-2.7b dense]: decode_steps={st['decode_steps']} "
+          f"prefills={st['prefills']} ssm_scan launches "
+          f"{launches['ssm_scan']} ({cfg.n_layers}/prefill) flash_attention "
+          f"launches {launches['flash_attention']} ({n_attn}/prefill) "
+          f"tokens/s={st['tokens_per_s']:.1f} occupancy="
+          f"{st['batch_occupancy']:.2f} decode step {out['step_ms']:.1f} ms",
+          flush=True)
+    del eng
+    eng = engine()
+    eng.run([RequestSpec((1,) * b, 2) for b in buckets])
+    eng.reset_stats()
+    reqs = eng.run(specs, sync_per_step=True)
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    out["ttft_ms"] = (float(np.percentile(ttft, 50)),
+                      float(np.percentile(ttft, 99)))
+    out["latency_tokens_per_s"] = eng.stats()["tokens_per_s"]
+    check([eng.finalize_request(r) for r in reqs] == streams,
+          "zamba2: latency-mode streams differ from the throughput run")
+    del eng
+    seq = serve_sequential(cfg, params, specs, max_seq=max_seq,
+                           prompt_buckets=buckets, device=device)
+    check(streams == [seq["tokens"][i + 1] for i in range(len(specs))],
+          "zamba2: engine streams != serve_sequential streams")
+    out["sequential_tokens_per_s"] = seq["tokens_per_s"]
+    print(f"check: zamba2 engine == serve_sequential: {len(specs)}/"
+          f"{len(specs)} streams identical", flush=True)
+    # the decode path (the plain recurrences, from the state the kernels'
+    # prefill handed over) against a teacher-forced prefill through the
+    # kernels, in float32, where rounding cannot hide a fault: the logits of
+    # each emitted position agree to 1e-3 of their scale
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = compute_params(cfg32, params, torch.device(device))
+    cparams = compute_params(cfg, params, torch.device(device))
+    worst = worst_bf16 = 0.0
+    scale = 1.0
+    for i in range(0, len(specs), max(len(specs) // 4, 1)):
+        b = next(b for b in buckets if b >= len(specs[i].prompt))
+        padded = list(specs[i].prompt) + [0] * (b - len(specs[i].prompt))
+        toks = torch.tensor([padded], dtype=torch.int64, device=device)
+        _, cache = api.prefill(cfg32, p32, {"tokens": toks}, s_max=max_seq)
+        for j in range(8):
+            lg_d, cache = api.decode_step(cfg32, p32, cache, {
+                "tokens": torch.tensor([[streams[i][j]]], device=device),
+                "pos": torch.tensor([b + j], device=device)})
+            if j % 4 != 3:
+                continue
+            lg_p = teacher_logits(torch, api, cfg32, p32, padded,
+                                  streams[i][:j + 1], device)
+            lg_d = lg_d[0, -1].float()
+            check(bool(torch.isfinite(lg_d).all()), "zamba2: non-finite "
+                  "decode logits")
+            scale = max(scale, lg_p.abs().max().item())
+            worst = max(worst, (lg_d - lg_p).abs().max().item())
+        # bf16, as served: the gap of each emitted token to the argmax of a
+        # teacher-forced bf16 prefill (reported; bf16 rounding sets it)
+        for j in range(0, HYBRID_TOKENS, 16):
+            lg = teacher_logits(torch, api, cfg, cparams, padded,
+                                streams[i][:j], device)
+            worst_bf16 = max(worst_bf16,
+                             lg.max().item() - lg[streams[i][j]].item())
+    check(worst <= 1e-3 * scale, f"zamba2: float32 decode logits {worst} "
+          f"from the teacher-forced prefill's (> 1e-3 x {scale})")
+    out["teacher_err"], out["teacher_gap_bf16"] = worst, worst_bf16
+    print(f"check: zamba2 float32 decode vs teacher-forced prefill (kernels):"
+          f" max |logit diff| {worst:.3g} (<= 1e-3 x max |logit| "
+          f"{scale:.3g}); bf16 as served: worst top-1 gap of an emitted "
+          f"token {worst_bf16:.4f}", flush=True)
+    return out
+
+
+def flash_work(B, S, H, hd, causal=True):
+    """(bytes, operations): q, k, v read and the output written once in
+    bf16; 4 flops per (query, key, channel) for q.k and p.v, over the key
+    positions the causal mask keeps."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * S * H * hd * 2, 4 * B * H * hd * pairs
+
+
+def ssd_work(B, S, H, P, N):
+    """(bytes, ms of operations) of the least work the SSD scan needs for y
+    and the final state from a zero state: x in and y out in bf16, B and C
+    in bf16, dt float32, the final state float32 written; the multiply-adds
+    (2 flops each) of the chunked algorithm at the chunk length Q that needs
+    the fewest: per chunk, C.B^T over the Q(Q+1)/2 kept pairs once for all
+    heads (one B/C group), in bf16 on the tensor cores, and per head M.x
+    over those pairs, C.h (not in the first chunk, whose h is zero) and the
+    state update, in float32. Elementwise work (exp, the decays) is left
+    out, so the bound stays below what any kernel needs."""
+    n_bytes = 2 * B * S * H * P * 2 + 2 * B * S * N * 2 + B * S * H * 4 \
+        + B * H * P * N * 4
+    best = math.inf
+    for Q in (q for q in range(1, S + 1) if S % q == 0):
+        chunks, pairs = S // Q, Q * (Q + 1) // 2
+        ops_bf16 = B * chunks * 2 * pairs * N
+        ops_f32 = B * H * (chunks * (2 * pairs * P + 2 * Q * P * N)
+                           + (chunks - 1) * 2 * Q * P * N)
+        best = min(best, (ops_bf16 / BF16_FLOPS + ops_f32 / FP32_FLOPS) * 1e3)
+    return n_bytes, best
+
+
+def time_flash_ssm(torch, seed, errs, launches, device):
+    """Flash attention and the SSD scan at the zamba2 serving shape and at
+    S = 4096: kernel, plain version, library call (SDPA for attention; no
+    single PyTorch call computes the SSD scan) and bound. Timing launches do
+    not count."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_chunk_scan, ssm_scan
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=device)
+
+    def flush():
+        scratch.zero_()                     # 256 MB > the 50 MB L2
+
+    def bound(n_bytes, t_ops):
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+            else "operations"
+
+    saved = (flash_attention.launches, ssm_scan.launches)
+    rows = {}
+    for S in (FLASH_SERVE[1], LONG_S):
+        shape = (FLASH_SERVE[0], S) + FLASH_SERVE[2:]
+        q, k, v = flash_operands(torch, shape, torch.bfloat16, seed + 40,
+                                 device)
+        iters = 20 if S <= 512 else 5
+        ms = time_cuda(lambda: flash_attention(q, k, v, causal=True, bq=S,
+                                               bk=S), iters, flush)
+        plain_ms = time_cuda(lambda: ref.flash_attention(q, k, v,
+                                                         causal=True),
+                             iters, flush)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters, flush)
+        n_bytes, n_ops = flash_work(*shape)
+        b, by = bound(n_bytes, n_ops / BF16_FLOPS * 1e3)
+        rows["flash", S] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                            "bound_by": by, "library_ms": lib_ms,
+                            "shape": list(shape), "dtype": "bfloat16"}
+        print(f"kernel flash_attention bf16 {list(shape)} causal: {ms:.4f} ms"
+              f" (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {b:.4f} by "
+              f"{by})", flush=True)
+        del q, k, v, qt, kt, vt
+    for S in (SSD_SERVE[1], LONG_S):
+        shape = (SSD_SERVE[0], S) + SSD_SERVE[2:]
+        x, dt, A, Bm, Cm, _ = ssd_operands(torch, shape, torch.bfloat16,
+                                           seed + 50, device)
+        iters = 20 if S <= 512 else 5
+        ms = time_cuda(lambda: ssm_chunk_scan(x, dt, A, Bm, Cm, chunk=256),
+                       iters, flush)
+        # the plain version, the sequential oracle: S steps of small ops,
+        # so the host's launches set its time
+        plain_ms = time_cuda(lambda: ref.ssm_chunk_scan(x, dt, A, Bm, Cm),
+                             iters, flush)
+        b, by = bound(*ssd_work(*shape))
+        rows["ssm", S] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                          "bound_by": by, "library_ms": None,
+                          "shape": list(shape), "dtype": "bfloat16"}
+        print(f"kernel ssm_scan bf16 {list(shape)} (N {shape[-1]}, chunk "
+              f"256): {ms:.4f} ms (plain {plain_ms:.4f}, no library call, "
+              f"bound {b:.4f} by {by}, least chunked work: C.B^T in bf16, "
+              f"the rest in float32)", flush=True)
+        del x, dt, A, Bm, Cm
+    flash_attention.launches, ssm_scan.launches = saved
+    torch.cuda.empty_cache()
+    out = []
+    for name, key, S, src, line in (
+            ("flash_attention", "flash", FLASH_SERVE[1], "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:67"),
+            ("ssm_scan", "ssm", SSD_SERVE[1], "ssm_scan.cu",
+             "src/repro/kernels/ssm_scan.py:56")):
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": line, "launches": launches[name],
+               "max_abs_err": errs[name][1]}
+        row.update(rows[key, S])
+        row["max_abs_err_float32"] = errs[name][0]
+        row[f"s{LONG_S}"] = rows[key, LONG_S]
+        out.append(row)
+    return out
+
+
 PAPER_REPLACES = {"axpy": "src/repro/kernels/axpy.py:18",
                   "matvec": "src/repro/kernels/matvec.py:31",
                   "stencil2d": "src/repro/kernels/stencil2d.py:34",
@@ -647,7 +1071,7 @@ def main() -> int:
     for fn in ops.SIMD.values():
         fn.launches = 0
     errs = upir_phase(torch, args.seed, device)
-    paper_launches = {name: fn.launches for name, fn in ops.SIMD.items()}
+    paper_launches = {name: ops.SIMD[name].launches for name in PAPER_REPLACES}
     check(all(n > 0 for n in paper_launches.values()),
           f"a paper kernel never launched on the UPIR path: {paper_launches}")
     print(f"upir: {len(PAPER_TEST_CASES) + len(PAPER_FULL_CASES)} kernel "
@@ -664,10 +1088,28 @@ def main() -> int:
           f"(latency mode {res['latency_tokens_per_s']:.1f} tok/s) "
           f"[{time.perf_counter() - t0:.1f} s] on {card}", flush=True)
 
+    t0 = time.perf_counter()
+    fs_errs = flash_ssm_checks(torch, args.seed, device)
+    print(f"flash/ssm checks [{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    t0 = time.perf_counter()
+    hy = serve_hybrid(torch, np, args, device)
+    torch.cuda.synchronize()
+    print(f"serve zamba2-2.7b (dense layout): {hy['tokens_per_s']:.1f} decode "
+          f"tok/s, sequential {hy['sequential_tokens_per_s']:.1f} tok/s; "
+          f"TTFT p50 {hy['ttft_ms'][0]:.1f} ms p99 {hy['ttft_ms'][1]:.1f} ms "
+          f"(latency mode {hy['latency_tokens_per_s']:.1f} tok/s); "
+          f"{hy['step_ms']:.1f} ms per decode step (8 slots) "
+          f"[{time.perf_counter() - t0:.1f} s] on {card}", flush=True)
+
     kernels = time_kernels(torch, np, args.seed, res["serve_limits"],
                            res["oneshot"]["launches"], device)
+    kernels += time_flash_ssm(torch, args.seed, fs_errs, hy["launches"],
+                              device)
     kernels += time_paper_kernels(torch, args.seed, errs, paper_launches,
                                   device)
+    check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
+          f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     k = kernels[0]
     print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain "
           f"{k['plain_ms']:.4f}, sdpa {k['library_ms']:.4f}, bound "

@@ -15,8 +15,10 @@ from typing import Callable, Dict
 from ..core import ir
 from . import ref
 from .axpy import axpy
+from .flash_attention import flash_attention
 from .matmul import matmul
 from .matvec import matvec
+from .ssm_scan import ssm_scan
 from .stencil2d import stencil2d
 
 SIMD: Dict[str, Callable] = {
@@ -24,13 +26,18 @@ SIMD: Dict[str, Callable] = {
     "matmul": matmul,
     "matvec": matvec,
     "stencil2d": stencil2d,
+    "flash_attention": flash_attention,
+    "ssm_scan": ssm_scan,
 }
 
+# the reference's REFERENCE table has no ssm_scan (src/repro/kernels/ops.py),
+# so resolve("ssm_scan", "reference") raises a KeyError here as there
 REFERENCE: Dict[str, Callable] = {
     "axpy": ref.axpy,
     "matmul": ref.matmul,
     "matvec": ref.matvec,
     "stencil2d": ref.stencil2d,
+    "flash_attention": ref.flash_attention,
 }
 
 BACKENDS = {"cuda": SIMD, "reference": REFERENCE}
@@ -44,10 +51,8 @@ def resolve(fn: str, backend: str = "reference") -> Callable:
                          f"{sorted(BACKENDS)}")
     table = BACKENDS[backend]
     if fn not in table:
-        raise KeyError(
-            f"kernel '{fn}' not registered for backend '{backend}': the port "
-            f"registers {sorted(table)}; flash_attention and ssm_scan wait "
-            f"in ROADMAP Q2")
+        raise KeyError(f"kernel '{fn}' not registered for backend "
+                       f"'{backend}': it registers {sorted(table)}")
     return table[fn]
 
 

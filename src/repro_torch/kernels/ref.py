@@ -1,13 +1,14 @@
-"""Plain PyTorch oracles of the paper's kernels (the port's ``ref.py``).
+"""Plain PyTorch oracles of the kernels (the port's ``ref.py``).
 
 The ground truth each CUDA kernel is held against, and the lowering targets
-of the UPIR ``worksharing`` backend (the kernels are the ``simd`` backend).
-Dtype rules follow the JAX package's ``kernels/ref.py``: products accumulate
-in float32 and round once to the input dtype. The oracles of
-``flash_attention`` and ``ssm_chunk_scan`` come with their kernels
-(ROADMAP Q2).
+of the UPIR ``worksharing`` backend (the kernels are the ``simd`` backend);
+the counterpart of the JAX package's ``kernels/ref.py``. Dtype rules follow
+it: matrix products accumulate in float32 and round once to the input
+dtype; the elementwise kernels (axpy, stencil2d) compute in the input dtype.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -35,11 +36,60 @@ def stencil2d(u, w_center: float = -4.0, w_side: float = 1.0):
     """5-point 2-D stencil with a zero boundary (the paper's stencil kernel):
 
     out[i,j] = w_c*u[i,j] + w_s*(((u[i-1,j] + u[i+1,j]) + u[i,j-1]) + u[i,j+1])
+
+    computed in ``u``'s dtype, as the JAX package's oracle: a bfloat16 ``u``
+    rounds after every multiply and add.
     """
     up = F.pad(u, (1, 1, 1, 1))
     return (w_center * u
             + w_side * (up[:-2, 1:-1] + up[2:, 1:-1]
                         + up[1:-1, :-2] + up[1:-1, 2:])).to(u.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Plain-softmax attention oracle (``src/repro/kernels/ref.py:40``).
+    q/k/v: [B, S, H, hd] (same head count); float32 scores, probabilities
+    and sums, the output rounded once to q's dtype. ``window`` > 0 keeps only
+    the keys ``kpos > qpos - window``, as the model's ``attention_full``
+    does (the reference's oracle has no window)."""
+    B, S, H, hd = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(hd)
+    if causal or window:
+        pos = torch.arange(S, device=q.device)
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        scores = torch.where(mask[None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def ssm_chunk_scan(x, dt, A, Bm, Cm, h0=None):
+    """Sequential SSD oracle (``src/repro/kernels/ref.py:53``): the state
+    recurrence one step at a time, in float32.
+
+    x [B,S,H,P]; dt [B,S,H]; A [H]; Bm/Cm [B,S,N] (G = 1); ``h0`` [B,H,P,N]
+    (zeros by default). Returns (y [B,S,H,P] in x's dtype, h_final
+    [B,H,P,N] float32).
+    """
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    A = A.float()
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()                              # [B,H]
+        decay = torch.exp(dtt * A)
+        h = decay[..., None, None] * h + torch.einsum(
+            "bn,bhp->bhpn", Bm[:, t].float(),
+            x[:, t].float() * dtt[..., None])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def error_bound(kernel: str, args, want):

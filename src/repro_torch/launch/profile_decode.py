@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         [--arch tinyllama-1.1b] [--slots 8] [--prompt-len 300] [--steps 20]
 
-Fills every slot of a paged engine with one request (random weights, random
+Fills every slot of an engine (the paged layout where the family is
+pageable, else the dense one) with one request (random weights, random
 prompts from ``--seed``), lets prefill finish, then times ``--steps`` decode
 steps three ways: wall clock with a device sync after each step (step time),
 wall clock of the host's dispatch alone (no sync), and under
@@ -38,11 +39,12 @@ def main(argv=None):
     from ..runtime.engine import Engine, EngineConfig, RequestSpec
 
     cfg = smoke_config(args.arch) if args.smoke else config(args.arch)
+    layout = "paged" if api.supports_paged_kv(cfg) else "dense"
     bucket = 1 << max(args.prompt_len - 1, 1).bit_length()
     tokens = 3 * args.steps + 8
     engine = Engine(cfg, EngineConfig(
         slots=args.slots, prompt_buckets=(bucket,),
-        max_seq=bucket + tokens, kv_layout="paged", page_size=16),
+        max_seq=bucket + tokens, kv_layout=layout, page_size=16),
         params=api.init_params(cfg, args.seed, device=args.device),
         device=args.device)
     dev = engine.device
@@ -96,7 +98,8 @@ def main(argv=None):
     print(f"decode step: {step_ms:.3f} ms with a sync per step, host "
           f"dispatch {host_ms:.3f} ms, device {device_ms:.3f} ms "
           f"(idle share {max(0.0, 1 - device_ms / step_ms):.3f}); "
-          f"slots={args.slots} context~{bucket} on {dev} "
+          f"slots={args.slots} context~{bucket} arch={cfg.name} "
+          f"kv_layout={layout} on {dev} "
           f"({torch.cuda.get_device_name(dev)})")
     for us, n, name in rows[:args.top]:
         print(f"  {us / 1e3 / args.steps:9.4f} ms/step  {n // args.steps:5d} "

@@ -3,14 +3,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --paged --requests 8 --slots 4 --prompt-len 16 --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --kv-layout dense --smoke --device cpu
 
 Runs on the card by default; ``--device cpu`` (with ``--smoke``) runs the
 plain attention path on the CPU. The flags are the JAX package launcher's for
 the features this slice ports: ``--temperature`` / ``--top-k`` / ``--top-p`` /
 ``--seed`` turn on sampling, ``--eos-id`` finishes requests on an EOS token,
-``--sequential`` also runs the one-request-at-a-time path for comparison. The
-paged KV layout is the only one ported, so ``--paged`` is accepted and
-implied.
+``--sequential`` also runs the one-request-at-a-time path for comparison.
+``--kv-layout`` picks the KV layout: ``paged`` (the default for a pageable
+family; ``--paged``, the reference's flag, says the same) or ``dense`` (the
+default, and the only layout, for the hybrid family).
 """
 import argparse
 
@@ -26,7 +29,10 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=0,
                     help="KV horizon (default: prompt bucket + tokens)")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV layout (the only layout ported; implied)")
+                    help="paged KV layout (same as --kv-layout paged)")
+    ap.add_argument("--kv-layout", choices=("dense", "paged"), default=None,
+                    help="KV layout (default: paged where the family is "
+                         "pageable, else dense)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per physical KV page")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -66,10 +72,15 @@ def main(argv=None):
         if args.temperature > 0 else None
     eos_id = args.eos_id if args.eos_id >= 0 else None
 
+    if args.paged and args.kv_layout == "dense":
+        ap.error("--paged and --kv-layout dense contradict each other")
+    layout = "paged" if args.paged else args.kv_layout
+    if layout is None:
+        layout = "paged" if api.supports_paged_kv(cfg) else "dense"
     params = api.init_params(cfg, 0, device=args.device)
     engine = Engine(cfg, EngineConfig(slots=args.slots,
                                       prompt_buckets=(bucket,),
-                                      max_seq=max_seq, kv_layout="paged",
+                                      max_seq=max_seq, kv_layout=layout,
                                       page_size=args.page_size),
                     params=params, device=args.device)
     rng = np.random.default_rng(0)
@@ -92,10 +103,10 @@ def main(argv=None):
           f"caps={','.join(st['capabilities']) or '-'} "
           f"requests={args.requests} slots={args.slots} "
           f"prompt={args.prompt_len} tokens={args.tokens} mode={mode} "
-          f"policy={st['policy']}")
+          f"policy={st['policy']} kv_layout={layout}")
     print(f"  completed={st['completed']} eos_finished={st['eos_finished']} "
           f"rejected={st['rejected']} decode_steps={st['decode_steps']} "
-          f"recycles={st['recycles']} evictions={st['evictions']}")
+          f"recycles={st['recycles']} evictions={st.get('evictions', 0)}")
     print(f"  occupancy={st['batch_occupancy']:.2f} "
           f"throughput={st['tokens_per_s']:.1f} tok/s "
           f"plan_cache_hit_rate={st['plan_cache']['hit_rate']:.2f}")
@@ -105,7 +116,8 @@ def main(argv=None):
     if args.sequential:
         seq = serve_sequential(cfg, params, requests, max_seq=max_seq,
                                prompt_buckets=(bucket,),
-                               page_size=args.page_size, device=args.device)
+                               page_size=args.page_size, kv_layout=layout,
+                               device=args.device)
         same = all(engine.finalize_request(r) == seq["tokens"][r.rid]
                    for r in done)
         print(f"sequential: throughput={seq['tokens_per_s']:.1f} tok/s "

@@ -7,8 +7,10 @@ that lacks a capability raises :class:`CapabilityError` naming it. The same
 flags render into the UPIR program text (``core.plans``), so capabilities
 take part in the program fingerprint exactly as in the JAX package.
 
-This slice registers the ``dense`` family. The others (moe, vlm, hybrid, ssm,
-encdec) are ROADMAP Q1 #10.
+The port registers the ``dense`` family (pageable) and the ``hybrid``
+family (``stateful_cache``: conv and SSM states plus a rolling window cache,
+served on the dense layout). The others (moe, vlm, ssm, encdec) are ROADMAP
+Q1 #10.
 """
 from __future__ import annotations
 
@@ -40,8 +42,10 @@ class FamilySpec:
     # ---- uniform entry points
     param_shapes: Callable = None
     init_params: Callable = None
-    cache_shapes: Callable = None
+    cache_specs: Callable = None
+    init_cache: Callable = None
     prefill: Callable = None
+    decode_step: Callable = None
     # ---- capability-gated entry points
     paged_cache_shapes: Optional[Callable] = None   # pageable
     init_paged_cache: Optional[Callable] = None
@@ -68,6 +72,11 @@ def _tf_prefill(cfg, params, batch, *, s_max=None):
     return transformer.prefill(cfg, params, batch["tokens"], s_max=s_max)
 
 
+def _tf_decode(cfg, params, cache, batch):
+    return transformer.decode_step(cfg, params, cache, batch["tokens"],
+                                   batch["pos"])
+
+
 def _tf_decode_paged(cfg, params, pool, page_table, batch, *, kernel=None):
     return transformer.decode_step_paged(cfg, params, pool, page_table,
                                          batch["tokens"], batch["pos"],
@@ -79,17 +88,28 @@ def _tf_prefill_chunk(cfg, params, pool, page_row, batch, offset):
                                      batch["tokens"], offset)
 
 
-FAMILY_SPECS: Dict[str, FamilySpec] = {
-    "dense": FamilySpec(
-        key="dense", pageable=True,
+def _transformer_spec(key: str, **caps) -> FamilySpec:
+    paged = caps.get("pageable", False)
+    return FamilySpec(
+        key=key,
         param_shapes=transformer.param_shapes,
         init_params=transformer.init_params,
-        cache_shapes=transformer.cache_shapes,
+        cache_specs=transformer.cache_specs,
+        init_cache=transformer.init_cache,
         prefill=_tf_prefill,
-        paged_cache_shapes=transformer.paged_cache_shapes,
-        init_paged_cache=transformer.init_paged_cache,
-        decode_step_paged=_tf_decode_paged,
-        prefill_chunk=_tf_prefill_chunk),
+        decode_step=_tf_decode,
+        paged_cache_shapes=transformer.paged_cache_shapes if paged else None,
+        init_paged_cache=transformer.init_paged_cache if paged else None,
+        decode_step_paged=_tf_decode_paged if paged else None,
+        prefill_chunk=_tf_prefill_chunk if paged else None,
+        **caps)
+
+
+FAMILY_SPECS: Dict[str, FamilySpec] = {
+    # a dense per-layer K/V cache: pageable
+    "dense": _transformer_spec("dense", pageable=True),
+    # recurrent/rolling caches, not pageable (src/repro/models/api.py:185)
+    "hybrid": _transformer_spec("hybrid", stateful_cache=True),
 }
 
 
@@ -131,12 +151,49 @@ def init_params(cfg: ArchConfig, generator=0, *, device=None):
 
 
 def cache_specs(cfg: ArchConfig, B: int, S_max: int):
-    return _specs(family_spec(cfg).cache_shapes(cfg, B, S_max),
-                  cfg.compute_dtype)
+    """``(shape, dtype name)`` per leaf of the dense-layout decode cache."""
+    return family_spec(cfg).cache_specs(cfg, B, S_max)
+
+
+def cache_batch_dims(cfg: ArchConfig, s_max: int) -> Dict[str, int]:
+    """Per-leaf batch dim of a family's cache, found structurally: the dim
+    whose extent tracks B (``src/repro/models/api.py:241``); -1 for a
+    batch-independent leaf."""
+    a, b = cache_specs(cfg, 2, s_max), cache_specs(cfg, 3, s_max)
+    return {k: next((i for i, (p, q) in enumerate(zip(a[k][0], b[k][0]))
+                     if p != q), -1) for k in a}
+
+
+def build_cache_insert(cfg: ArchConfig, s_max: int):
+    """Slot insert: a cache-of-one into slot ``i`` of a batched cache, in
+    place (``src/repro/models/api.py:257``)."""
+    bdims = cache_batch_dims(cfg, s_max)
+
+    def insert(cache, one, slot: int):
+        for k, d in bdims.items():
+            if d >= 0:
+                cache[k].narrow(d, slot, 1).copy_(one[k])
+        return cache
+
+    return insert
+
+
+def init_cache(cfg: ArchConfig, B: int, S_max: int, *, device=None):
+    return family_spec(cfg).init_cache(cfg, B, S_max, device=device)
 
 
 def prefill(cfg: ArchConfig, params, batch: Dict[str, Any], *, s_max=None):
     return family_spec(cfg).prefill(cfg, params, batch, s_max=s_max)
+
+
+def decode_step(cfg: ArchConfig, params, cache, batch: Dict[str, Any]):
+    """One decode step on the dense layout: (logits [B,1,V], the cache
+    updated in place)."""
+    return family_spec(cfg).decode_step(cfg, params, cache, batch)
+
+
+def supports_paged_kv(cfg: ArchConfig) -> bool:
+    return family_spec(cfg).pageable
 
 
 # ------------------------------------------------------------------ paged KV

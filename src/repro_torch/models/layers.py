@@ -134,6 +134,84 @@ def attention_full(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
     return out.reshape(B, Sq, H, hd)
 
 
+def attention_chunked(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
+                      kv_chunk: int = 1024, window: int = 0):
+    """Online-softmax attention, double-chunked (the reference's XLA flash,
+    ``src/repro/models/layers.py:145``). Memory O(chunk^2)."""
+    B, Sq, H, hd = q.shape
+    k = gqa_expand_kv(k, H)
+    v = gqa_expand_kv(v, H)
+    Sk = k.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    nq, nk = Sq // q_chunk, Sk // kv_chunk
+    scale = 1.0 / np.sqrt(hd)
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        q_i = q[:, iq * q_chunk:(iq + 1) * q_chunk]
+        m = torch.full((B, H, q_chunk), float("-inf"), device=dev)
+        l = torch.zeros((B, H, q_chunk), device=dev)
+        acc = torch.zeros((B, H, q_chunk, hd), device=dev)
+        for jk in range(nk):
+            k_j = k[:, jk * kv_chunk:(jk + 1) * kv_chunk]
+            v_j = v[:, jk * kv_chunk:(jk + 1) * kv_chunk]
+            s = torch.einsum("bqhd,bshd->bhqs", q_i, k_j).float() * scale
+            if causal or window:
+                qpos = iq * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+                kpos = jk * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+                ok = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                                device=dev)
+                if causal:
+                    ok &= kpos <= qpos
+                if window:
+                    ok &= kpos > qpos - window
+                s = torch.where(ok[None, None], s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqs,bshd->bhqd", p.to(q.dtype), v_j).float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))                   # [B,H,qc,hd]
+    return torch.cat(outs, dim=2).transpose(1, 2).reshape(B, Sq, H, hd)
+
+
+def attention_decode(q, k_cache, v_cache, pos, *, window: int = 0,
+                     new_kv=None):
+    """One-token attention against a (possibly rolling) dense KV cache
+    (``src/repro/models/layers.py:202``).
+
+    q: [B,1,H,hd]; k_cache/v_cache: [B,S,KV,hd]; pos: [B] absolute position
+    of the new token. Entries past ``pos`` are masked; with ``window`` the
+    cache slots hold the last ``window`` positions (rolling). ``new_kv``
+    runs deferred-insert (cache positions ``< pos``, the new token merged
+    online).
+    """
+    S = k_cache.shape[1]
+    slot = torch.arange(S, device=q.device)[None, :]
+    limit = pos if new_kv is not None else pos + 1
+    if window:
+        valid = slot < torch.clamp(limit, max=window)[:, None]
+    else:
+        valid = slot < limit[:, None]
+    return _attend_cached(q, k_cache, v_cache, valid, new_kv)
+
+
+def cache_insert(cache, new, pos, *, window: int = 0):
+    """Write [B,1,KV,hd] into [B,S,KV,hd] at each row's position, in place
+    (``src/repro/models/layers.py:259``): slot ``pos % window`` when
+    windowed (rolling), else ``pos``, clamped to the last slot as the
+    reference's ``dynamic_update_slice`` clamps. Returns the cache."""
+    pos = pos.long()
+    idx = pos % window if window else torch.clamp(pos, max=cache.shape[1] - 1)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx] = new[:, 0].to(cache.dtype)
+    return cache
+
+
 def _attend_cached(q, k_cache, v_cache, valid, new_kv):
     """Shared decode-attention core: softmax over cache entries where ``valid``
     ([B,S] bool), optionally merging a deferred new-token K/V online."""

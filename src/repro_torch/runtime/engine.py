@@ -1,12 +1,22 @@
-"""Continuous-batching serving engine on the paged KV layout (PyTorch port).
+"""Continuous-batching serving engine, paged and dense KV layouts (PyTorch port).
 
 The counterpart of the JAX package's ``runtime/engine.py`` for its main path:
 requests enter a bounded queue, prefill into a **fixed-width decode batch** of
 slots, and decode advances every active slot one token per step; a finished
 slot is refilled from the queue on the next step.
 
-The KV cache is a ``[num_pages, page_size]`` physical pool per layer plus a
-per-slot page table and a free-list allocator (``PagedKVAllocator``).
+Two KV-cache layouts (``EngineConfig.kv_layout``):
+
+* ``"paged"`` (the default here, the port's main path): a ``[num_pages,
+  page_size]`` physical pool per layer plus a per-slot page table and a
+  free-list allocator (``PagedKVAllocator``); pageable families only.
+* ``"dense"``: every slot owns its horizon of the family's cache
+  (``api.init_cache(slots, max_seq)``): a per-layer K/V cache for the dense
+  family, the conv and SSM states plus a rolling window cache for the hybrid
+  family, which is not pageable. A prefill's cache-of-one is inserted into
+  the slot's row (``api.build_cache_insert``).
+
+On the paged layout:
 Sequences hold only the pages they have reached, so admission **overcommits**:
 a request is admitted when its *prompt* pages are free. If the pool runs dry
 mid-decode, the policy's victim (the newest-admitted request under FIFO) is
@@ -28,10 +38,9 @@ Host buffers that change in place (positions, page tables, per-slot policy)
 reach the device only as fresh copies (``_upload``): an asynchronous upload
 never reads a buffer that the host is still writing.
 
-Not ported in this slice (the fields exist and raise ``NotImplementedError``
-when set): the dense layout, the prefix cache with copy-on-write, fault
-tolerance, telemetry, tiered and disaggregated KV, and speculative decoding
-(ROADMAP Q1 #9).
+Not ported yet (the fields exist and raise ``NotImplementedError`` when
+set): the prefix cache with copy-on-write, fault tolerance, telemetry, tiered
+and disaggregated KV, and speculative decoding (ROADMAP Q1 #9).
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import api
 from ..models.api import KernelSpec
 from ..models.layers import cache_write_pages
-from ..models.transformer import compute_params
+from ..models.transformer import DECODE_ROW_MULTIPLE, compute_params
 from .sampling import (GREEDY, SamplingParams, decode_select, gumbel_noise,
                        request_key, sample_tokens)
 from .scheduling import (FIFO, SchedulerState, SchedulingPolicy,
@@ -161,11 +170,11 @@ _UNPORTED = (
 class EngineConfig:
     """Engine construction knobs, validated once in :class:`Engine`. The
     field names and defaults are the JAX package's, with two exceptions:
-    ``kv_layout`` defaults to ``"paged"`` (the dense layout is not ported)
-    and ``decode_kernel`` is ``"cuda"`` (the paged-attention kernel wrapper;
-    its plain version on CPU tensors) or ``"torch"`` (the plain gather path,
-    CPU only). Fields of features this slice has not ported raise
-    ``NotImplementedError`` when set.
+    ``kv_layout`` defaults to ``"paged"`` (the port's main path; the
+    reference defaults to ``"dense"``) and ``decode_kernel`` is ``"cuda"``
+    (the paged-attention kernel wrapper; its plain version on CPU tensors)
+    or ``"torch"`` (the plain gather path, CPU only). Fields of features
+    the port has not ported yet raise ``NotImplementedError`` when set.
 
     * ``slots`` *[plan key]* — fixed decode batch width.
     * ``max_queue`` — admission bound; beyond it a submit is rejected with
@@ -178,9 +187,12 @@ class EngineConfig:
       processes.
     * ``eos_poll_every`` — decode steps between host polls of the
       device-side finished mask (0 = only truncate at finalize).
+    * ``kv_layout`` *[plan key]* — ``"paged"`` or ``"dense"`` (per-slot
+      horizon, any family).
     * ``page_size`` / ``num_pages`` *[plan key]* — pool geometry (0 pages =
-      ``slots * ceil(max_seq / page_size)``, i.e. no overcommit).
-    * ``prefill_chunk`` — 0 = one-shot prefill; else the chunk length.
+      ``slots * ceil(max_seq / page_size)``, i.e. no overcommit); paged only.
+    * ``prefill_chunk`` — 0 = one-shot prefill; else the chunk length (paged
+      only; the dense layout prefills one-shot, as in the reference).
     * ``scheduling`` *[plan key]* — admission policy
       (``runtime.scheduling``); ``prefix_affinity`` needs the prefix cache.
     """
@@ -369,7 +381,8 @@ def _sync(device: torch.device) -> None:
 
 
 class Engine:
-    """Slot-based continuous-batching engine over the paged KV layout.
+    """Slot-based continuous-batching engine over the paged or the dense KV
+    layout.
 
     ``device`` defaults to the card; pass ``device="cpu"`` to run on the CPU
     (the decode kernel's plain version then serves attention).
@@ -382,13 +395,10 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.spec = api.family_spec(cfg)
-        if ecfg.kv_layout == "dense":
-            raise NotImplementedError(
-                "the dense KV layout is not ported yet (ROADMAP Q1 #7); use "
-                "kv_layout='paged'")
-        if ecfg.kv_layout != "paged":
+        if ecfg.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', "
                              f"got {ecfg.kv_layout!r}")
+        self.paged = ecfg.kv_layout == "paged"
         for name, default, item in _UNPORTED:
             if getattr(ecfg, name) != default:
                 raise NotImplementedError(
@@ -418,21 +428,22 @@ class Engine:
                 "is not ported yet (ROADMAP Q1 #9)")
         self._sched_state = SchedulerState(self.policy)
         self._kernel = KernelSpec(attn_impl=ecfg.decode_kernel)
-        if not self.spec.pageable:
-            raise api.CapabilityError(
-                f"paged KV cache: family '{self.spec.key}' does not declare "
-                f"the 'pageable' capability")
-        if ecfg.page_size < 1:
-            raise ValueError("page_size must be >= 1")
-        if ecfg.prefill_chunk:
-            if ecfg.prefill_chunk % ecfg.page_size:
-                raise ValueError("prefill_chunk must be a multiple of "
-                                 "page_size (chunks write whole pages)")
-            bad = [b for b in ecfg.prompt_buckets
-                   if b > ecfg.prefill_chunk and b % ecfg.prefill_chunk]
-            if bad:
-                raise ValueError(f"prompt buckets {bad} not divisible by "
-                                 f"prefill_chunk {ecfg.prefill_chunk}")
+        if self.paged:
+            if not self.spec.pageable:
+                raise api.CapabilityError(
+                    f"paged KV cache: family '{self.spec.key}' does not "
+                    f"declare the 'pageable' capability")
+            if ecfg.page_size < 1:
+                raise ValueError("page_size must be >= 1")
+            if ecfg.prefill_chunk:
+                if ecfg.prefill_chunk % ecfg.page_size:
+                    raise ValueError("prefill_chunk must be a multiple of "
+                                     "page_size (chunks write whole pages)")
+                bad = [b for b in ecfg.prompt_buckets
+                       if b > ecfg.prefill_chunk and b % ecfg.prefill_chunk]
+                if bad:
+                    raise ValueError(f"prompt buckets {bad} not divisible by "
+                                     f"prefill_chunk {ecfg.prefill_chunk}")
         self.device = resolve_device(device)
         if self._kernel.attn_impl == "torch" and self.device.type != "cpu":
             raise ValueError("decode_kernel='torch' is the CPU reference "
@@ -442,8 +453,10 @@ class Engine:
         self.trace = trace if trace is not None else []
 
         self.pages_per_slot = -(-ecfg.max_seq // ecfg.page_size)
-        self.num_pages = ecfg.num_pages or ecfg.slots * self.pages_per_slot
-        page_geom = (self.num_pages, ecfg.page_size, self.pages_per_slot)
+        self.num_pages = (ecfg.num_pages or ecfg.slots * self.pages_per_slot) \
+            if self.paged else 0
+        page_geom = (self.num_pages, ecfg.page_size, self.pages_per_slot) \
+            if self.paged else None
 
         # the decode plan: UPIR program -> pass pipeline -> LoweredPlan,
         # cached by canonical fingerprint; page geometry and policy included
@@ -461,12 +474,19 @@ class Engine:
         self.params = compute_params(cfg, params, self.device)
 
         # mutable serving state
-        self.pool = api.init_paged_cache(cfg, self.num_pages, ecfg.page_size,
-                                         device=self.device)
-        self.allocator = PagedKVAllocator(self.num_pages)
-        self.page_table_np = np.zeros((ecfg.slots, self.pages_per_slot),
-                                      np.int32)
-        self._slot_pages: List[List[int]] = [[] for _ in range(ecfg.slots)]
+        if self.paged:
+            self.pool = api.init_paged_cache(cfg, self.num_pages,
+                                             ecfg.page_size,
+                                             device=self.device)
+            self.allocator = PagedKVAllocator(self.num_pages)
+            self.page_table_np = np.zeros((ecfg.slots, self.pages_per_slot),
+                                          np.int32)
+            self._slot_pages: List[List[int]] = [[] for _ in
+                                                 range(ecfg.slots)]
+        else:
+            self.cache = api.init_cache(cfg, ecfg.slots, ecfg.max_seq,
+                                        device=self.device)
+            self._insert = api.build_cache_insert(cfg, ecfg.max_seq)
         dev = self.device
         self.tokens = torch.zeros((ecfg.slots, 1), dtype=torch.int64,
                                   device=dev)
@@ -547,9 +567,11 @@ class Engine:
 
     def _run_prefill(self, req: Request):
         """One-shot prefill of the padded prompt. Returns (first token [1],
-        cache-of-one padded to the prompt's whole pages)."""
+        cache-of-one): padded to the prompt's whole pages on the paged
+        layout, to the horizon ``max_seq`` on the dense one."""
         toks = _upload(self._padded_prompt(req), self.device)[None, :]
-        s_max = self._page_count(req.bucket) * self.ecfg.page_size
+        s_max = self._page_count(req.bucket) * self.ecfg.page_size \
+            if self.paged else self.ecfg.max_seq
         logits, cache = api.prefill(self.cfg, self.params, {"tokens": toks},
                                     s_max=s_max)
         return self._sample_first(req, logits[:, -1], req.bucket - 1), cache
@@ -605,7 +627,7 @@ class Engine:
         if req.max_new_tokens < 1:
             return self._reject(req, "max_new_tokens must be >= 1")
         need = self._page_count(bucket + req.max_new_tokens)
-        if need > self.num_pages:
+        if self.paged and need > self.num_pages:
             return self._reject(req, f"request needs {need} pages; pool has "
                                      f"{self.num_pages}")
         if self.ecfg.max_queue is not None \
@@ -693,7 +715,10 @@ class Engine:
 
     def _maybe_preempt(self, cand: Request) -> bool:
         """Priority preemption: evict the policy's victim to make room for
-        a strictly higher-class queued candidate."""
+        a strictly higher-class queued candidate. Only the paged layout
+        preempts: a dense slot's horizon has nothing to hand back."""
+        if not self.paged:
+            return False
         running = [r for r in self.slots_req if r is not None]
         if not wants_preemption(self.policy, cand, running):
             return False
@@ -701,6 +726,24 @@ class Engine:
             self.preemptions += 1
             return True
         return False
+
+    def _admit_into_free_slots(self) -> None:
+        """Fill free slots from the queue. Dense layout: one-shot prefill
+        into each free slot's row of the cache
+        (``src/repro/runtime/engine.py:1566``)."""
+        if self.paged:
+            return self._admit_paged()
+        for i in range(self.ecfg.slots):
+            while self.slots_req[i] is None and self.queue:
+                idx = self._next_index()
+                if idx is None:
+                    return
+                req = self.queue[idx]
+                del self.queue[idx]
+                self._mark_admitted(req, i)
+                nxt0, one = self._run_prefill(req)
+                self.cache = self._insert(self.cache, one, i)
+                self._activate(req, i, nxt0)
 
     def _admit_paged(self) -> None:
         while self.queue:
@@ -852,7 +895,7 @@ class Engine:
 
     def _release_pages(self, req: Request) -> None:
         i = req.slot
-        if i < 0 or not self._slot_pages[i]:
+        if not self.paged or i < 0 or not self._slot_pages[i]:
             return
         self.allocator.free(self._slot_pages[i])
         self._slot_pages[i] = []
@@ -907,7 +950,9 @@ class Engine:
     def check_invariants(self) -> None:
         """Allocator invariants plus the engine's page-table view: slot rows
         mirror ``_slot_pages``, mapped entries are live, and empty slots hold
-        no pages."""
+        no pages. Dense engines have no page state: a no-op there."""
+        if not self.paged:
+            return
         self.allocator.check_invariants()
         for i in range(self.ecfg.slots):
             row = self._slot_pages[i]
@@ -931,22 +976,28 @@ class Engine:
         prefill, then one decode step for the whole batch. Returns the number
         of active slots decoded."""
         self._activated = []
-        self._admit_paged()
-        self._prefill_tick()
-        # cold start / post-drain: nothing to decode yet, so spend the step
-        # activating the shortest prompt instead of idling
-        while self._prefilling and \
-                not any(r is not None for r in self.slots_req):
+        self._admit_into_free_slots()
+        if self.paged:
             self._prefill_tick()
-        self._ensure_pages()
+            # cold start / post-drain: nothing to decode yet, so spend the
+            # step activating the shortest prompt instead of idling
+            while self._prefilling and \
+                    not any(r is not None for r in self.slots_req):
+                self._prefill_tick()
+            self._ensure_pages()
         active = [i for i in range(self.ecfg.slots)
                   if self.slots_req[i] is not None]
         if active:
             dev = self.device
             pos_dev = _upload(self.pos, dev)
-            logits, self.pool = api.decode_step_paged(
-                self.cfg, self.params, self.pool, self._device_page_table(),
-                {"tokens": self.tokens, "pos": pos_dev}, kernel=self._kernel)
+            batch = {"tokens": self.tokens, "pos": pos_dev}
+            if self.paged:
+                logits, self.pool = api.decode_step_paged(
+                    self.cfg, self.params, self.pool,
+                    self._device_page_table(), batch, kernel=self._kernel)
+            else:
+                logits, self.cache = api.decode_step(self.cfg, self.params,
+                                                     self.cache, batch)
             # count the step's input token (the previous emission) before
             # selecting, so the penalty at position p sees every earlier token
             rows = torch.arange(self.ecfg.slots, device=dev)
@@ -977,7 +1028,8 @@ class Engine:
             for r in self._activated:
                 r.t_first = now
         self.peak_concurrent = max(self.peak_concurrent, len(active))
-        self.peak_pages = max(self.peak_pages, self.allocator.in_use)
+        if self.paged:
+            self.peak_pages = max(self.peak_pages, self.allocator.in_use)
         self._tick += 1
         return len(active)
 
@@ -1073,7 +1125,7 @@ class Engine:
     def stats(self) -> EngineStats:
         occ = (self._occupancy_sum / self.decode_steps / self.ecfg.slots
                if self.decode_steps else 0.0)
-        return EngineStats(
+        out = EngineStats(
             queue_depth=len(self.queue),
             active_slots=sum(1 for r in self.slots_req if r is not None),
             slots=self.ecfg.slots,
@@ -1097,13 +1149,15 @@ class Engine:
             tokens_per_s=(self.tokens_generated / self.elapsed_s
                           if self.elapsed_s else 0.0),
             rejected_queue_full=self.rejected_queue_full,
-            plan_cache=self.plan_cache.stats(),
-            page_size=self.ecfg.page_size,
-            num_pages=self.num_pages,
-            pages_in_use=self.allocator.in_use,
-            peak_pages=self.peak_pages,
-            evictions=self.evictions,
-            prefill_chunks=self.prefill_chunks)
+            plan_cache=self.plan_cache.stats())
+        if self.paged:
+            out.page_size = self.ecfg.page_size
+            out.num_pages = self.num_pages
+            out.pages_in_use = self.allocator.in_use
+            out.peak_pages = self.peak_pages
+            out.evictions = self.evictions
+            out.prefill_chunks = self.prefill_chunks
+        return out
 
 
 # ------------------------------------------------------- sequential baseline
@@ -1113,9 +1167,14 @@ def serve_sequential(cfg: ArchConfig, params,
                      requests: Sequence[Union[Request, RequestSpec]], *,
                      max_seq: int, prompt_buckets: Tuple[int, ...] = (16, 32, 64),
                      page_size: int = 16, warmup: bool = True,
+                     kv_layout: Optional[str] = None,
                      device: DeviceLike = None) -> Dict[str, Any]:
-    """One request at a time: a B=1 one-shot prefill, then a B=1 decode loop
-    over a private paged pool. Pads prompts to the same buckets as the engine,
+    """One request at a time: a B=1 one-shot prefill, then a decode loop of
+    the one request over a private cache: a paged pool (``kv_layout=
+    "paged"``, the default for a pageable family) or a dense cache of
+    ``DECODE_ROW_MULTIPLE`` rows whose first row is the request's
+    (``"dense"``, the default otherwise, as in the reference's
+    ``serve_sequential``). Pads prompts to the same buckets as the engine,
     so token streams are comparable; it is the engine's oracle.
 
     :class:`RequestSpec` entries are materialized with ``rid = position + 1``
@@ -1136,10 +1195,48 @@ def serve_sequential(cfg: ArchConfig, params,
                 _key=request_key(r.sampling or GREEDY, i + 1)))
         else:
             mats.append(r)
-    pps = -(-max_seq // page_size)
-    pool = api.init_paged_cache(cfg, pps, page_size, device=dev)
-    page_ids = torch.arange(1, pps + 1, device=dev)
-    table = page_ids.to(torch.int32)[None, :]
+    if kv_layout is None:
+        kv_layout = "paged" if api.supports_paged_kv(cfg) else "dense"
+    if kv_layout not in ("dense", "paged"):
+        raise ValueError(f"kv_layout must be 'dense' or 'paged', "
+                         f"got {kv_layout!r}")
+    paged = kv_layout == "paged"
+    if paged:
+        pps = -(-max_seq // page_size)
+        pool = api.init_paged_cache(cfg, pps, page_size, device=dev)
+        page_ids = torch.arange(1, pps + 1, device=dev)
+        table = page_ids.to(torch.int32)[None, :]
+    else:
+        rows = DECODE_ROW_MULTIPLE
+        cache = api.init_cache(cfg, rows, max_seq, device=dev)
+        insert = api.build_cache_insert(cfg, max_seq)
+        step_toks = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
+        step_pos = torch.zeros((rows,), dtype=torch.int64, device=dev)
+
+    def prefill_one(toks, bucket):
+        if not paged:
+            logits, one_c = api.prefill(cfg, params, {"tokens": toks[None, :]},
+                                        s_max=max_seq)
+            insert(cache, one_c, 0)
+            return logits
+        n_pages = -(-bucket // page_size)
+        logits, one_c = api.prefill(cfg, params, {"tokens": toks[None, :]},
+                                    s_max=n_pages * page_size)
+        cache_write_pages(pool["k_pages"], one_c["k"], page_ids[:n_pages])
+        cache_write_pages(pool["v_pages"], one_c["v"], page_ids[:n_pages])
+        return logits
+
+    def decode_one(tok, p):
+        if not paged:
+            step_toks[0] = tok
+            step_pos[0] = p
+            logits, _ = api.decode_step(cfg, params, cache,
+                                        {"tokens": step_toks, "pos": step_pos})
+            return logits[:1]
+        pos = torch.full((1,), p, dtype=torch.int64, device=dev)
+        logits, _ = api.decode_step_paged(cfg, params, pool, table,
+                                          {"tokens": tok[:, None], "pos": pos})
+        return logits
 
     def one(req, bucket, toks):
         s = req.sampling or GREEDY
@@ -1162,21 +1259,14 @@ def serve_sequential(cfg: ArchConfig, params,
                                  counts=counts if pen else None,
                                  presence=presence, frequency=frequency)
 
-        n_pages = -(-bucket // page_size)
-        logits, cache = api.prefill(cfg, params, {"tokens": toks[None, :]},
-                                    s_max=n_pages * page_size)
-        cache_write_pages(pool["k_pages"], cache["k"], page_ids[:n_pages])
-        cache_write_pages(pool["v_pages"], cache["v"], page_ids[:n_pages])
+        logits = prefill_one(toks, bucket)
         gen = [select(logits[:, -1], bucket - 1)]
         counts = torch.zeros((1, cfg.vocab), dtype=torch.int32, device=dev)
         hit_eos = req.eos_id is not None and int(gen[0][0]) == req.eos_id
         if not hit_eos:
             for i in range(req.max_new_tokens - 1):
                 p = bucket + i
-                pos = torch.full((1,), p, dtype=torch.int64, device=dev)
-                logits, _ = api.decode_step_paged(
-                    cfg, params, pool, table,
-                    {"tokens": gen[-1][:, None], "pos": pos})
+                logits = decode_one(gen[-1], p)
                 counts[0, gen[-1][0]] += 1
                 gen.append(select(logits[:, -1], p, counts))
                 if req.eos_id is not None and int(gen[-1][0]) == req.eos_id:

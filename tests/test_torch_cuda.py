@@ -7,7 +7,8 @@ They skip where there is no card; on one, run them with
 This file imports neither ``jax`` nor the JAX package, so it runs on a
 machine that has only PyTorch: each CUDA kernel is held against its plain
 PyTorch version, the engine on the card against ``serve_sequential``, and
-the threefry noise on the card against the same noise on the CPU.
+the threefry noise on the card against the same noise on the CPU, and the
+hybrid family's prefill through the flash-attention and SSD kernels.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssm_chunk_scan, ssm_scan
 from repro_torch.kernels.programs import frontend_programs, symbols_of
 from repro_torch.models import api
 from repro_torch.models.layers import NEG, attention_decode_paged
@@ -138,6 +141,9 @@ PAPER_CASES = [
     ("stencil2d", "float32", [(128, 384)], dict(bm=64, bn=128)),
     ("stencil2d", "float32", [(37, 53)], {}),
     ("stencil2d", "float32", [(4096, 4096)], {}),
+    ("stencil2d", "bfloat16", [(256, 256)], dict(bm=128, bn=128)),
+    ("stencil2d", "bfloat16", [(37, 53)], {}),
+    ("stencil2d", "bfloat16", [(4096, 4096)], {}),
     ("matmul", "float32", [(256, 256), (256, 256)], dict(bm=128, bn=128,
                                                          bk=128)),
     ("matmul", "bfloat16", [(512, 384), (384, 256)], dict(bm=128, bn=128,
@@ -191,7 +197,7 @@ def test_paper_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtypes"):
         ops.resolve("axpy", "cuda")(1.0, x.half(), x.half())
     with pytest.raises(ValueError, match="dtypes"):
-        ops.resolve("stencil2d", "cuda")(x.reshape(16, 16).bfloat16())
+        ops.resolve("stencil2d", "cuda")(x.reshape(16, 16).half())
     with pytest.raises(ValueError, match="on"):
         ops.resolve("matvec", "cuda")(x.reshape(16, 16), x[:16].cpu())
 
@@ -236,3 +242,134 @@ def test_threefry_noise_on_the_card_equals_the_cpu(cuda):
     got = gumbel_noise(keys, pos, 32000, cuda).cpu().numpy()
     spacing = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32))
     assert (np.abs(got.astype(np.float64) - want) <= 2 * spacing).all()
+
+
+# flash attention: tests/test_kernels.py's shapes (float32, tolerance 2e-4),
+# ragged and odd-width shapes the kernel masks, windows shorter than S (the
+# kernel skips the kv tiles left of them), and the zamba2 prefill shape in
+# bfloat16, where both versions sum in float32 from the same inputs and
+# round the output once: one bf16 ulp of the larger, 2^-7 |x|
+FLASH_CASES = [
+    ((2, 256, 4, 64), True, 0, "float32", dict(bq=64, bk=64)),
+    ((2, 256, 4, 64), False, 0, "float32", dict(bq=64, bk=64)),
+    ((1, 512, 2, 32), True, 0, "float32", dict(bq=128, bk=256)),
+    ((1, 512, 2, 32), False, 0, "float32", dict(bq=128, bk=256)),
+    ((1, 100, 3, 80), True, 0, "float32", {}),
+    ((2, 72, 2, 128), False, 0, "float32", {}),
+    ((1, 512, 32, 80), True, 0, "bfloat16", {}),
+    ((1, 512, 4, 80), True, 128, "float32", dict(bq=512, bk=512)),
+    ((1, 300, 2, 64), True, 100, "float32", dict(bq=300, bk=300)),
+    ((2, 256, 2, 32), False, 64, "float32", dict(bq=64, bk=64)),
+    ((1, 1024, 32, 80), True, 256, "bfloat16", dict(bq=1024, bk=1024)),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window,dtype,tiles", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, shape, causal, window, dtype,
+                                       tiles):
+    dt = getattr(torch, dtype)
+    q, k, v = (rnd(shape, 100 + i).mul(0.3).to(cuda, dt) for i in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, **tiles)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    bound = 2e-4 if dtype == "float32" else \
+        2.0 ** -7 * torch.maximum(want.float().abs(), got.float().abs()) \
+        + 1e-6
+    assert bool(torch.isfinite(got).all()) and (err <= bound).all(), \
+        err.max()
+
+
+# the SSD chunk scan against the sequential oracle: tests/test_kernels.py's
+# shapes and one shorter than a chunk (float32, tolerance 2e-3), with and
+# without an initial state, and the zamba2 shape with x, B, C in bfloat16
+# (y is rounded to bf16 once: 2^-7 |want| beside the float32 tolerance)
+SSD_CASES = [
+    ((2, 256, 4, 16, 8), 64, "float32"),
+    ((1, 128, 2, 32, 16), 32, "float32"),
+    ((1, 48, 2, 16, 8), 64, "float32"),
+    ((1, 512, 80, 64, 64), 256, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("shape,chunk,dtype", SSD_CASES)
+def test_ssm_scan_matches_sequential_oracle(cuda, shape, chunk, dtype,
+                                            with_h0):
+    B, S, H, P, N = shape
+    dt = getattr(torch, dtype)
+    x = rnd((B, S, H, P), 110).mul(0.5).to(cuda, dt)
+    dts = torch.nn.functional.softplus(rnd((B, S, H), 111)).to(cuda)
+    A = -torch.exp(torch.from_numpy(np.random.default_rng(112).uniform(
+        0, 1, H).astype(np.float32))).to(cuda)
+    Bm = rnd((B, S, N), 113).mul(0.5).to(cuda, dt)
+    Cm = rnd((B, S, N), 114).mul(0.5).to(cuda, dt)
+    h0 = rnd((B, H, P, N), 115).mul(0.3).to(cuda) if with_h0 else None
+    before = ssm_scan.launches
+    y, h = ssm_chunk_scan(x, dts, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ref.ssm_chunk_scan(x, dts, A, Bm, Cm, h0=h0)
+    assert bool(torch.isfinite(y).all()) and y.dtype == dt
+    bound = 2e-3 + (2.0 ** -7 * want_y.float().abs() if dtype == "bfloat16"
+                    else 0.0)
+    assert ((y.float() - want_y.float()).abs() <= bound).all()
+    torch.testing.assert_close(h, want_h, rtol=2e-3, atol=2e-3)
+
+
+def test_hybrid_engine_on_the_card_equals_serve_sequential(cuda):
+    """zamba2 at the smoke size on the dense layout: every prefill runs the
+    SSD kernel once per layer and flash attention once per shared-attention
+    layer, and the engine's streams equal serve_sequential's."""
+    cfg = smoke_config("zamba2-2.7b")
+    params = api.init_params(cfg, 0, device=cuda)
+    rng = np.random.default_rng(1)
+    specs = [RequestSpec(tuple(rng.integers(0, cfg.vocab, int(n)).tolist()),
+                         5) for n in rng.integers(1, 41, size=5)]
+    engine = Engine(cfg, EngineConfig(slots=2, prompt_buckets=(16, 40),
+                                      max_seq=48, kv_layout="dense"),
+                    params=params, device=cuda)
+    ssm_scan.launches = flash_attention.launches = 0
+    reqs = engine.run(specs)
+    prefills = engine.stats()["prefills"]
+    assert ssm_scan.launches == prefills * cfg.n_layers
+    assert flash_attention.launches == \
+        prefills * (cfg.n_layers // cfg.hybrid_attn_period)
+    got = [engine.finalize_request(r) for r in reqs]
+    seq = serve_sequential(cfg, params, specs, max_seq=48,
+                           prompt_buckets=(16, 40), device=cuda)
+    assert got == [seq["tokens"][i + 1] for i in range(len(specs))]
+
+
+def test_hybrid_prefill_beyond_the_window_runs_the_kernels(cuda):
+    """A prompt longer than the attention window (64 at the smoke size): the
+    shared attention still runs the flash kernel, with the window, and the
+    prefill's logits and caches agree with the CPU's plain path within 1e-4
+    (float32; the two SSD scans chunk and sum in different orders)."""
+    cfg = smoke_config("zamba2-2.7b")
+    assert cfg.attn_window == 64
+    params = api.init_params(cfg, 0, device=cuda)
+
+    def on_cpu(tree):
+        return {k: on_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 160))).long()
+    ssm_scan.launches = flash_attention.launches = 0
+    logits, cache = api.prefill(cfg, params, {"tokens": toks.to(cuda)},
+                                s_max=192)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == cfg.n_layers
+    assert flash_attention.launches == \
+        len(range(0, cfg.n_layers, cfg.hybrid_attn_period))
+    want_logits, want_cache = api.prefill(cfg, on_cpu(params),
+                                          {"tokens": toks}, s_max=192)
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=1e-4,
+                               atol=1e-4)
+    for k in want_cache:
+        torch.testing.assert_close(cache[k].cpu(), want_cache[k], rtol=1e-4,
+                                   atol=1e-4)

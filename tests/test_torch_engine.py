@@ -293,9 +293,12 @@ def test_unported_features_raise(params, name, value):
 
 
 def test_dense_layout_raises(params):
+    """The dense layout is ported (tests/test_torch_hybrid.py holds it
+    against the reference); a layout that is neither raises, naming both."""
     _, tp = params
-    with pytest.raises(NotImplementedError, match="dense"):
-        engine(tp, kv_layout="dense")
+    assert engine(tp, kv_layout="dense").stats()["kv_layout"] == "dense"
+    with pytest.raises(ValueError, match="'dense' or 'paged'"):
+        engine(tp, kv_layout="rolling")
 
 
 def test_plan_is_cached_and_carries_geometry(params):

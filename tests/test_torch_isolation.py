@@ -49,9 +49,12 @@ def test_port_has_the_modules_of_its_slice():
                  "core/frontends/cuda.py", "core/unparse.py",
                  "kernels/ref.py", "kernels/axpy.py", "kernels/matvec.py",
                  "kernels/stencil2d.py", "kernels/matmul.py",
-                 "kernels/ops.py", "kernels/programs.py"):
+                 "kernels/ops.py", "kernels/programs.py",
+                 "kernels/flash_attention.py", "kernels/ssm_scan.py",
+                 "models/mamba2.py"):
         assert want in names
-    for cu in ("paged_attention", "axpy", "matvec", "stencil2d", "matmul"):
+    for cu in ("paged_attention", "axpy", "matvec", "stencil2d", "matmul",
+               "flash_attention", "ssm_scan"):
         assert (REPO / f"src/repro_torch/kernels/csrc/{cu}.cu").exists()
 
 
@@ -88,8 +91,8 @@ def test_torch_attention_refuses_cuda_tensors():
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import build
-    assert build.sources() == ["axpy", "matmul", "matvec", "paged_attention",
-                               "stencil2d"]
+    assert build.sources() == ["axpy", "flash_attention", "matmul", "matvec",
+                               "paged_attention", "ssm_scan", "stencil2d"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build, "Path", lambda *_: tmp_path / "no-nvcc")

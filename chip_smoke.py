@@ -34,12 +34,19 @@ In order:
    within the tolerances of the JAX package's kernel test at its shapes and
    within ``kernels.ref.error_bound`` at full size (axpy n = 2^28, matvec
    32768^2, stencil 16384^2, matmul 8192^3 in bfloat16 and float32); the
-   stencil also in bfloat16, bit for bit (both round after every op);
+   stencil also in bfloat16, bit for bit (both round after every op). The
+   full-size bf16 matmul must take the ``wgmma`` route (TMA + wgmma); then
+   bf16 products with ragged M, K and N on the ``wgmma`` route and
+   (100, 72) @ (72, 36) on the ``mma`` route (N % 8 != 0), each within
+   ``kernels.ref.error_bound`` and counted on its route;
 6. holds the flash-attention and SSD chunk-scan kernels against their plain
    versions: flash attention at the JAX package's kernel-test shapes (float32,
    tolerance 2e-4) and at the zamba2 prefill shape [1, 512, 32, 80] in
    bfloat16, and with a sliding window shorter than S (float32, and bfloat16
-   at [1, 1024, 32, 80], window 256); the SSD scan at the kernel-test shapes and one shorter than a
+   at [1, 1024, 32, 80], window 256), and in bfloat16 at a ragged S, hd 64
+   and 128, non-causal and S = 4096 (tolerance one bf16 ulp); float32 calls
+   must take the ``fma`` route and bfloat16 ones the ``mma`` route (tensor
+   cores); the SSD scan at the kernel-test shapes and one shorter than a
    chunk (float32, 2e-3, with and without an initial state) and at the
    zamba2 shape [1, 512, 80, 64] with N = 64 in bfloat16, y and the final
    state against the sequential oracle; then both through the UPIR registry
@@ -50,7 +57,8 @@ In order:
    (16) greedy requests of 100-500 prompt tokens, ``HYBRID_TOKENS`` (32) new
    tokens each — and runs the same requests
    through ``serve_sequential``. Checks: exactly 54 SSD-scan and 9
-   flash-attention launches per prefill; engine streams equal
+   flash-attention launches per prefill, every flash launch on the ``mma``
+   route; engine streams equal
    ``serve_sequential``'s; in float32, the decode step's logits (the plain
    recurrences) agree with a teacher-forced prefill's (the kernels) to 1e-3
    of their scale. Prints decode tokens/s, TTFT p50/p99 and ms per decode
@@ -58,9 +66,10 @@ In order:
 8. times each kernel (paged attention at the serving shape, flash attention
    and the SSD scan at the zamba2 serving shape and at S = 4096, zamba2's
    window, the paper kernels at full size) beside its bound, its plain
-   version and one library call where one exists, and prints the ``kernels``
-   JSON line (all seven kernels), the card's name and power limit, and last
-   the ``{"ok": true, ...}`` line.
+   version and one library call where one exists (and the bf16 matmul's
+   ``mma`` route beside its ``wgmma`` one, on the same inputs), and prints the
+   ``kernels`` JSON line (all seven kernels, each with its ``kernel_route``),
+   the card's name and power limit, and last the ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the last line.
 """
@@ -70,6 +79,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +102,14 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+def reset_counts(fns) -> None:
+    """Every launch count of ``fns`` to 0, the per-route counts too."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def time_cuda(fn, iters: int, flush=None) -> float:
@@ -117,6 +135,32 @@ def time_cuda(fn, iters: int, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, spill bytes stored + loaded) of each entry
+    function in an ``nvcc -Xptxas -v`` log; names demangled by the
+    toolkit's ``cu++filt`` where it is there."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and "registers" in line and name:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows.append([name, regs, spill])
+            name, spill = None, 0
+    filt = Path("/usr/local/cuda/bin/cu++filt")
+    if rows and filt.exists():
+        out = subprocess.run([str(filt)], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = re.sub(r"\((?:int|bool)\)|void |<unnamed>::", "", n)
+                r[0] = n.split("(")[0]
+    return rows
 
 
 # ------------------------------------------------------------ kernel checks
@@ -424,10 +468,20 @@ def upir_case(torch, kernel, dtype, shapes, tiles, scale, seed, device,
     check(fn is ops.SIMD[kernel] and oracle is ops.REFERENCE[kernel],
           f"{kernel}: simd must lower to cuda, worksharing to reference")
     before = fn.launches
+    route = "cuda_cores"
+    if kernel == "matmul":
+        from repro_torch.kernels.matmul import matmul_route
+        (M, K), (_, N) = shapes
+        route = matmul_route(M, N, K, args[0].dtype, args[0].data_ptr(),
+                             args[1].data_ptr())
+        on_route = fn.launches_by_route[route]
     got = fn(*args, **tiles)
     torch.cuda.synchronize()
     check(fn.launches == before + 1,
           f"{kernel}: the simd program did not launch the CUDA kernel")
+    if kernel == "matmul":
+        check(fn.launches_by_route[route] == on_route + 1,
+              f"{kernel}: no launch counted on the {route} route")
     want = oracle(*args)
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{kernel}: shape/dtype {tuple(got.shape)} {got.dtype}")
@@ -450,9 +504,9 @@ def upir_case(torch, kernel, dtype, shapes, tiles, scale, seed, device,
               f"{what}: max err {err} beyond {TEST_TOL[dtype]}")
         rule = f"within {TEST_TOL[dtype]}"
     print(f"upir[{what}]: omp == acc == cuda (simd {fps[0]}, worksharing "
-          f"{fps[1]}); simd -> CUDA kernel, worksharing -> plain; max "
-          f"|simd - worksharing| {err:.3g} ({rule})", flush=True)
-    return err
+          f"{fps[1]}); simd -> CUDA kernel ({route}), worksharing -> plain; "
+          f"max |simd - worksharing| {err:.3g} ({rule})", flush=True)
+    return err, route
 
 
 def upir_phase(torch, seed, device):
@@ -466,11 +520,49 @@ def upir_phase(torch, seed, device):
     errs = {}
     for i, (kernel, dtype, shapes, tiles, scale) in enumerate(
             PAPER_FULL_CASES):
-        errs[kernel, dtype] = upir_case(torch, kernel, dtype, shapes, tiles,
-                                        scale, seed + 100 + i, device,
-                                        full=True)
+        errs[kernel, dtype], route = upir_case(
+            torch, kernel, dtype, shapes, tiles, scale, seed + 100 + i,
+            device, full=True)
+        if (kernel, dtype) == ("matmul", "bfloat16"):
+            check(route == "wgmma", f"full-size bf16 matmul took the {route} "
+                  f"route, not wgmma")
         torch.cuda.empty_cache()
     return errs
+
+
+# bf16 products whose route is checked: (M, K, N, route); ragged M, K and N
+# on the wgmma route (TMA zero-fills the edges), N % 8 != 0 on mma.sync
+MATMUL_ROUTE_CASES = [(1000, 200, 1032, "wgmma"), (100, 72, 36, "mma")]
+
+
+def matmul_route_checks(torch, seed, device):
+    """Each bf16 case takes its route, counts one launch there and agrees
+    with the plain version within ``kernels.ref.error_bound``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matmul import matmul, matmul_route
+    for i, (M, K, N, route) in enumerate(MATMUL_ROUTE_CASES):
+        a, b = paper_operands(torch, "matmul", "bfloat16", [(M, K), (K, N)],
+                              1.0, seed + 300 + i, device)
+        got_route = matmul_route(M, N, K, a.dtype, a.data_ptr(),
+                                 b.data_ptr())
+        check(got_route == route, f"matmul {M}x{K}x{N}: route {got_route}, "
+              f"not {route}")
+        counts = dict(matmul.launches_by_route)
+        got = matmul(a, b, bm=M, bn=N, bk=K)
+        torch.cuda.synchronize()
+        counts[route] += 1
+        check(matmul.launches_by_route == counts,
+              f"matmul {M}x{K}x{N}: counts {matmul.launches_by_route}, "
+              f"want {counts}")
+        want = ref.matmul(a, b)
+        diff = (got.float() - want.float()).abs()
+        check(bool(torch.isfinite(got).all()) and bool(
+            (diff <= ref.error_bound("matmul", [a, b], want)).all()),
+            f"matmul bf16 {M}x{K}x{N} ({route}): max err {diff.max().item()}"
+            f" beyond kernels.ref.error_bound")
+        print(f"matmul[bfloat16 ({M}, {K}) @ ({K}, {N})]: route {route}; max "
+              f"err {diff.max().item():.3g} (within kernels.ref.error_bound)",
+              flush=True)
 
 
 # ----------------------------------------------------------------- timing
@@ -527,6 +619,7 @@ def time_kernels(torch, np, seed, limits, launches, device):
     t_ops = flops / BF16_FLOPS * 1e3
     return [{
         "name": "paged_attention_partial", "route": "cuda",
+        "kernel_route": "cuda_cores",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:82",
         "launches": launches, "max_abs_err": err, "ms": ms,
@@ -582,12 +675,20 @@ def time_paper_kernels(torch, seed, errs, launches, device):
         args = paper_operands(torch, kernel, dtype, shapes, scale,
                               seed + 200 + i, device)
         fn, plain = ops.SIMD[kernel], ops.REFERENCE[kernel]
-        saved = fn.launches
+        saved = fn.launches, dict(getattr(fn, "launches_by_route", {}))
         ms_big = {"matmul": 5 if dtype == "float32" else 10}.get(kernel, 20)
         ms = time_cuda(lambda: fn(*args), ms_big, flush)
         plain_ms = time_cuda(lambda: plain(*args), ms_big, flush)
         library_ms = time_cuda(library(kernel, args), ms_big, flush)
-        fn.launches = saved
+        fn.launches = saved[0]
+        if saved[1]:
+            fn.launches_by_route = saved[1]
+        route = "cuda_cores"
+        if kernel == "matmul":
+            from repro_torch.kernels.matmul import matmul_route
+            (M, K), (_, N) = shapes
+            route = matmul_route(M, N, K, args[0].dtype, args[0].data_ptr(),
+                                 args[1].data_ptr())
         n_bytes, ops_n = paper_work(kernel, dtype, shapes)
         peak = BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -600,11 +701,16 @@ def time_paper_kernels(torch, seed, errs, launches, device):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "dtype": dtype,
-            "shape": [list(s) for s in shapes]}
-        print(f"kernel {kernel} {dtype} {shapes}: {ms:.4f} ms (plain "
-              f"{plain_ms:.4f}, library {library_ms:.4f}, bound "
+            "shape": [list(s) for s in shapes], "kernel_route": route}
+        extra = ""
+        if route == "wgmma":
+            rows[kernel, dtype]["mma_ms"] = mma_ms = time_mma_route(
+                torch, args, flush, ms_big, device)
+            extra = f", the mma route on the same inputs {mma_ms:.4f}"
+        print(f"kernel {kernel} {dtype} {shapes} ({route}): {ms:.4f} ms "
+              f"(plain {plain_ms:.4f}, library {library_ms:.4f}, bound "
               f"{rows[kernel, dtype]['bound_ms']:.4f} by "
-              f"{rows[kernel, dtype]['bound_by']})", flush=True)
+              f"{rows[kernel, dtype]['bound_by']}{extra})", flush=True)
         del args
         torch.cuda.empty_cache()
     # one entry per kernel: matmul's is bfloat16, with float32 beside it
@@ -612,8 +718,35 @@ def time_paper_kernels(torch, seed, errs, launches, device):
            rows["stencil2d", "float32"], rows["matmul", "bfloat16"]]
     out[-1]["float32"] = {k: rows["matmul", "float32"][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "shape")}
+        "library_ms", "shape", "kernel_route")}
     return out
+
+
+def time_mma_route(torch, args, flush, iters, device):
+    """The bf16 matmul's mma.sync kernel timed on the inputs the wgmma
+    route took (the launcher runs any route whose preconditions hold; the
+    wrapper would pick wgmma), after checking its output within
+    ``kernels.ref.error_bound``. Not a launch of the main path: nothing is
+    counted."""
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.kernels.matmul import ROUTE_CODES, launcher
+    a, b = args
+    (M, K), (_, N) = a.shape, b.shape
+    out = torch.empty((M, N), dtype=a.dtype, device=device)
+    fn = launcher()
+
+    def call():
+        _cuda.launch("matmul", fn, a.device, a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), M, N, K, _cuda.DTYPE_CODES[a.dtype],
+                     ROUTE_CODES["mma"])
+
+    call()
+    want = ref.matmul(a, b)
+    check(bool(((out.float() - want.float()).abs()
+                <= ref.error_bound("matmul", args, want)).all()),
+          "matmul bf16 on the mma route beyond kernels.ref.error_bound")
+    del want
+    return time_cuda(call, iters, flush)
 
 
 # ------------------------------------------- flash attention and the SSD scan
@@ -632,6 +765,11 @@ LONG_S = 4096                                 # zamba2's attention window
 FLASH_WINDOW = [(1, 512, 4, 80, 128, "float32"),
                 (2, 300, 2, 64, 100, "float32"),
                 (1, 1024, 32, 80, 256, "bfloat16")]
+# bf16 flash on the tensor-core route: (B, S, H, hd, causal): a ragged S,
+# hd 64 and 128, non-causal, and S = 4096 at the serving width
+FLASH_BF16 = [(1, 100, 3, 80, True), (2, 256, 4, 64, True),
+              (1, 300, 2, 128, True), (1, 512, 32, 80, False),
+              (1, LONG_S, 32, 80, True)]
 # the zamba2 serving phase: requests and new tokens per request
 HYBRID_REQUESTS = 16
 HYBRID_TOKENS = 32
@@ -673,6 +811,7 @@ def flash_ssm_checks(torch, seed, device):
     from repro_torch.kernels.ssm_scan import ssm_chunk_scan
     errs = {}
     worst = 0.0
+    counts = dict(flash_attention.launches_by_route)
     for i, (B, S, H, hd, bq, bk) in enumerate(FLASH_TEST_SHAPES):
         for causal in (True, False):
             q, k, v = flash_operands(torch, (B, S, H, hd), torch.float32,
@@ -705,10 +844,32 @@ def flash_ssm_checks(torch, seed, device):
               f"flash {dtype} {B}x{S}x{H}x{hd} window {window}: max err "
               f"{err.max().item()}")
         win.append(f"{dtype} S {S} window {window}: {err.max().item():.3g}")
+    edges = []
+    for i, (B, S, H, hd, causal) in enumerate(FLASH_BF16):
+        q, k, v = flash_operands(torch, (B, S, H, hd), torch.bfloat16,
+                                 seed + 30 + i, device)
+        got = flash_attention(q, k, v, causal=causal, bq=S, bk=S)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        err = (got.float() - want.float()).abs()
+        check(bool(torch.isfinite(got).all()) and bool(
+            (err <= bf16_bound(torch, want, got)).all()),
+            f"flash bf16 {B}x{S}x{H}x{hd} causal={causal}: max err "
+            f"{err.max().item()}")
+        edges.append(f"{B}x{S}x{H}x{hd}{'' if causal else ' non-causal'} "
+                     f"{err.max().item():.3g}")
+        del q, k, v, got, want, err
+    torch.cuda.synchronize()
+    n_win32 = sum(w[-1] == "float32" for w in FLASH_WINDOW)
+    counts["fma"] += 2 * len(FLASH_TEST_SHAPES) + n_win32
+    counts["mma"] += 1 + len(FLASH_WINDOW) - n_win32 + len(FLASH_BF16)
+    check(flash_attention.launches_by_route == counts,
+          f"flash routes {flash_attention.launches_by_route}, want {counts}: "
+          f"float32 takes fma, bfloat16 mma")
     print(f"flash_attention vs plain: float32 test shapes max err {worst:.3g}"
           f" (tol 2e-4), bf16 {list(FLASH_SERVE)} causal max err "
-          f"{diff.max().item():.3g} (tol 2^-7 |x|); windowed {'; '.join(win)}",
-          flush=True)
+          f"{diff.max().item():.3g} (tol 2^-7 |x|); windowed {'; '.join(win)}"
+          f"; bf16 (same tol) {'; '.join(edges)}; launches by route "
+          f"{flash_attention.launches_by_route}", flush=True)
 
     worst = worst_h = 0.0
     for i, (B, S, H, P, N, chunk) in enumerate(SSD_TEST_SHAPES):
@@ -804,11 +965,11 @@ def serve_hybrid(torch, np, args, device, buckets=(128, 256, 512),
     # the main path: every count at 0 just before it, read just after
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import paged_attention_partial
-    for fn in list(ops.SIMD.values()) + [paged_attention_partial]:
-        fn.launches = 0
+    reset_counts(list(ops.SIMD.values()) + [paged_attention_partial])
     reqs = eng.run(specs)
     launches = {"ssm_scan": ssm_scan.launches,
                 "flash_attention": flash_attention.launches}
+    flash_routes = dict(flash_attention.launches_by_route)
     st = eng.stats()
     streams = [eng.finalize_request(r) for r in reqs]
     check(all(r.state == "done" for r in reqs), "zamba2: not all done")
@@ -821,6 +982,9 @@ def serve_hybrid(torch, np, args, device, buckets=(128, 256, 512),
     check(launches["flash_attention"] == st["prefills"] * n_attn,
           f"zamba2: {launches['flash_attention']} flash launches != "
           f"{st['prefills']} prefills x {n_attn} attention layers")
+    check(flash_routes == {"fma": 0, "mma": launches["flash_attention"]},
+          f"zamba2: flash launches by route {flash_routes}: every bf16 "
+          f"prefill must take the tensor-core (mma) route")
     # ms per decode step: the whole batch of slots, synchronised
     dec = {"tokens": torch.zeros((8, 1), dtype=torch.int64, device=device),
            "pos": torch.full((8,), 600, dtype=torch.int64, device=device)}
@@ -836,8 +1000,8 @@ def serve_hybrid(torch, np, args, device, buckets=(128, 256, 512),
     print(f"serve[zamba2-2.7b dense]: decode_steps={st['decode_steps']} "
           f"prefills={st['prefills']} ssm_scan launches "
           f"{launches['ssm_scan']} ({cfg.n_layers}/prefill) flash_attention "
-          f"launches {launches['flash_attention']} ({n_attn}/prefill) "
-          f"tokens/s={st['tokens_per_s']:.1f} occupancy="
+          f"launches {launches['flash_attention']} ({n_attn}/prefill, by "
+          f"route {flash_routes}) tokens/s={st['tokens_per_s']:.1f} occupancy="
           f"{st['batch_occupancy']:.2f} decode step {out['step_ms']:.1f} ms",
           flush=True)
     del eng
@@ -952,7 +1116,8 @@ def time_flash_ssm(torch, seed, errs, launches, device):
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
             else "operations"
 
-    saved = (flash_attention.launches, ssm_scan.launches)
+    saved = (flash_attention.launches, ssm_scan.launches,
+             dict(flash_attention.launches_by_route))
     rows = {}
     for S in (FLASH_SERVE[1], LONG_S):
         shape = (FLASH_SERVE[0], S) + FLASH_SERVE[2:]
@@ -972,7 +1137,8 @@ def time_flash_ssm(torch, seed, errs, launches, device):
         rows["flash", S] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
                             "bound_by": by, "library_ms": lib_ms,
                             "shape": list(shape), "dtype": "bfloat16"}
-        print(f"kernel flash_attention bf16 {list(shape)} causal: {ms:.4f} ms"
+        print(f"kernel flash_attention bf16 {list(shape)} causal (mma): "
+              f"{ms:.4f} ms"
               f" (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {b:.4f} by "
               f"{by})", flush=True)
         del q, k, v, qt, kt, vt
@@ -996,7 +1162,8 @@ def time_flash_ssm(torch, seed, errs, launches, device):
               f"bound {b:.4f} by {by}, least chunked work: C.B^T in bf16, "
               f"the rest in float32)", flush=True)
         del x, dt, A, Bm, Cm
-    flash_attention.launches, ssm_scan.launches = saved
+    flash_attention.launches, ssm_scan.launches = saved[:2]
+    flash_attention.launches_by_route = saved[2]
     torch.cuda.empty_cache()
     out = []
     for name, key, S, src, line in (
@@ -1005,6 +1172,7 @@ def time_flash_ssm(torch, seed, errs, launches, device):
             ("ssm_scan", "ssm", SSD_SERVE[1], "ssm_scan.cu",
              "src/repro/kernels/ssm_scan.py:56")):
         row = {"name": name, "route": "cuda",
+               "kernel_route": "mma" if key == "flash" else "cuda_cores",
                "source": f"src/repro_torch/kernels/csrc/{src}",
                "replaces": line, "launches": launches[name],
                "max_abs_err": errs[name][1]}
@@ -1050,9 +1218,9 @@ def main() -> int:
     print(f"build: {len(build.sources())} kernel(s) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+        for kernel, regs, spill in ptxas_report(log):
+            print(f"  ptxas[{name}] {kernel}: {regs} registers, {spill} bytes "
+                  f"spilled")
 
     t0 = time.perf_counter()
     err32, err16 = kernel_checks(torch, np, args.seed, device)
@@ -1068,15 +1236,17 @@ def main() -> int:
 
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
-    for fn in ops.SIMD.values():
-        fn.launches = 0
+    reset_counts(ops.SIMD.values())
     errs = upir_phase(torch, args.seed, device)
     paper_launches = {name: ops.SIMD[name].launches for name in PAPER_REPLACES}
+    mm_routes = dict(ops.SIMD["matmul"].launches_by_route)
     check(all(n > 0 for n in paper_launches.values()),
           f"a paper kernel never launched on the UPIR path: {paper_launches}")
     print(f"upir: {len(PAPER_TEST_CASES) + len(PAPER_FULL_CASES)} kernel "
-          f"calls through lower_kernel_program, launches {paper_launches} "
-          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+          f"calls through lower_kernel_program, launches {paper_launches}, "
+          f"matmul by route {mm_routes} [{time.perf_counter() - t0:.1f} s]",
+          flush=True)
+    matmul_route_checks(torch, args.seed, device)
 
     t0 = time.perf_counter()
     res = serve(torch, np, args, device)

@@ -10,8 +10,13 @@ windowed prefill attention runs the kernel at every length.
 
 * ``flash_attention`` — the wrapper. For a tensor on the CPU it runs the plain
   version; for a CUDA tensor it launches the CUDA kernel
-  (``csrc/flash_attention.cu``) or raises. ``flash_attention.launches`` counts
-  kernel launches, and nothing else.
+  (``csrc/flash_attention.cu``) that :func:`flash_route` names for its dtype,
+  or raises. ``flash_attention.launches`` counts kernel launches, and nothing
+  else; ``flash_attention.launches_by_route`` splits them by route.
+* ``flash_route`` — the kernel a dtype takes: bfloat16 the tensor-core kernel
+  (``"mma"``: ``mma.sync``, P split into two bf16 terms), float32 the
+  CUDA-core kernel (``"fma"``), whose float32 arithmetic the float32
+  tolerance needs.
 * ``flash_attention_ref`` — the plain version, ``kernels.ref.flash_attention``.
 """
 from __future__ import annotations
@@ -24,8 +29,29 @@ from . import ref
 from ._cuda import DTYPE_CODES, FLOAT, INT, PTR, function, launch, operands
 
 MAX_HEAD_DIM = 128
+# the launcher's route argument
+ROUTE_CODES = {"fma": 0, "mma": 1}
 
 flash_attention_ref = ref.flash_attention       # the plain version
+
+
+def flash_route(dtype) -> str:
+    """The CUDA kernel that takes ``dtype``: ``"mma"`` (tensor cores) for
+    bfloat16, ``"fma"`` (CUDA cores) for float32."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"flash_attention: no kernel takes {dtype}")
+
+
+def launcher():
+    """``flash_attention_launch`` of ``csrc/flash_attention.cu``: (q, k, v,
+    out, B, S, H, hd, scale, causal, window, dtype code, route code,
+    stream); it returns cudaErrorInvalidValue for a route whose dtype does
+    not match."""
+    return function("flash_attention", "flash_attention_launch",
+                    [PTR] * 4 + [INT] * 4 + [FLOAT] + [INT] * 4)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, bq: int = 256,
@@ -48,14 +74,15 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 256,
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {hd} > {MAX_HEAD_DIM}")
     code = operands("flash_attention", DTYPE_CODES, q, k, v)
+    route = flash_route(q.dtype)
     out = torch.empty_like(q)
-    fn = function("flash_attention", "flash_attention_launch",
-                  [PTR] * 4 + [INT] * 4 + [FLOAT, INT, INT, INT])
-    launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(),
+    launch("flash_attention", launcher(), q.device, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), B, S, H, hd, 1.0 / math.sqrt(hd),
-           int(bool(causal)), int(window), code)
+           int(bool(causal)), int(window), code, ROUTE_CODES[route])
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)

@@ -17,7 +17,10 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as tpa
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels.flash_attention import flash_attention, flash_route
+from repro_torch.kernels.matmul import matmul, matmul_route
 from repro_torch.kernels.ssm_scan import ssm_chunk_scan, ssm_scan
 from repro_torch.kernels.programs import frontend_programs, symbols_of
 from repro_torch.models import api
@@ -154,6 +157,12 @@ PAPER_CASES = [
     ("matmul", "bfloat16", [(100, 72), (72, 36)], {}),
     ("matmul", "bfloat16", [(2048, 1024), (1024, 4096)], {}),
     ("matmul", "float32", [(2048, 1024), (1024, 512)], {}),
+    # bfloat16 on the wgmma route with ragged M, K and N (TMA zero-fills)
+    ("matmul", "bfloat16", [(1000, 200), (200, 1032)],
+     dict(bm=1000, bn=1032, bk=200)),
+    ("matmul", "bfloat16", [(4100, 520), (520, 264)],
+     dict(bm=4100, bn=264, bk=520)),
+    ("matmul", "bfloat16", [(1, 64), (64, 64)], {}),
 ]
 
 
@@ -167,9 +176,16 @@ def test_paper_kernel_matches_plain(cuda, kernel, dtype, shapes, tiles):
         args = [2.5] + args
     fn = ops.resolve(kernel, "cuda")
     before = fn.launches
+    if kernel == "matmul":
+        (M, K), (_, N) = shapes
+        route = matmul_route(M, N, K, dt, args[0].data_ptr(),
+                             args[1].data_ptr())
+        on_route = fn.launches_by_route[route]
     got = fn(*args, **tiles)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
+    if kernel == "matmul":
+        assert fn.launches_by_route[route] == on_route + 1
     want = ops.resolve(kernel, "reference")(*args)
     assert got.dtype == want.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
@@ -190,6 +206,49 @@ def test_paper_kernels_run_misaligned_operands(cuda):
         want = getattr(ref, kernel)(*args)
         assert ((got - want).abs()
                 <= ref.error_bound(kernel, args, want)).all()
+
+
+@pytest.mark.parametrize("M,K,N,dtype,offset,route", [
+    (8192, 8192, 8192, "bfloat16", 0, "wgmma"),
+    (1000, 200, 1032, "bfloat16", 0, "wgmma"),
+    (100, 72, 36, "bfloat16", 0, "mma"),
+    (64, 128, 128, "bfloat16", 1, "mma"),
+    (100, 72, 36, "float32", 0, "fma"),
+])
+def test_matmul_takes_its_route(cuda, M, K, N, dtype, offset, route):
+    """Each route launches its own kernel (``offset`` starts A that many
+    elements into its storage) and agrees with the plain version."""
+    dt = getattr(torch, dtype)
+    a = rnd((M * K + offset,), 94).to(cuda, dt)[offset:].view(M, K)
+    b = rnd((K, N), 95).to(cuda, dt)
+    assert matmul_route(M, N, K, dt, a.data_ptr(), b.data_ptr()) == route
+    counts = dict(matmul.launches_by_route)
+    got = matmul(a, b, bm=M, bn=N, bk=K)
+    torch.cuda.synchronize()
+    counts[route] += 1
+    assert matmul.launches_by_route == counts
+    want = ref.matmul(a, b)
+    assert ((got.float() - want.float()).abs()
+            <= ref.error_bound("matmul", [a, b], want)).all()
+
+
+def test_launchers_refuse_a_route_whose_preconditions_fail(cuda):
+    """cudaErrorInvalidValue (1), before any launch: wgmma on a misaligned
+    A or on N % 8 != 0, mma.sync or wgmma on float32, fma on bfloat16; the
+    flash kernels likewise by dtype."""
+    mm = tmm.launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+    a = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    c = torch.empty(64 * 64, dtype=torch.bfloat16, device=cuda)
+    p = a.data_ptr()
+    for args in ((p + 2, p, 64, 64, 64, 1, 2), (p, p, 64, 60, 64, 1, 2),
+                 (p, p, 64, 64, 64, 0, 2), (p, p, 64, 64, 64, 0, 1),
+                 (p, p, 64, 64, 64, 1, 0)):
+        assert mm(args[0], args[1], c.data_ptr(), *args[2:], stream) == 1
+    fa = tfa.launcher()
+    for dtype, route in ((0, 1), (1, 0)):
+        assert fa(p, p, p, c.data_ptr(), 1, 64, 1, 64, 0.125, 1, 0, dtype,
+                  route, stream) == 1
 
 
 def test_paper_kernels_refuse_what_they_do_not_take(cuda):
@@ -261,6 +320,15 @@ FLASH_CASES = [
     ((1, 300, 2, 64), True, 100, "float32", dict(bq=300, bk=300)),
     ((2, 256, 2, 32), False, 64, "float32", dict(bq=64, bk=64)),
     ((1, 1024, 32, 80), True, 256, "bfloat16", dict(bq=1024, bk=1024)),
+    # bfloat16 on the tensor-core route: ragged S, hd 64 / 80 / 128, a head
+    # dim that is no multiple of 8 (element loads), non-causal, a window
+    ((1, 100, 3, 80), True, 0, "bfloat16", {}),
+    ((2, 256, 4, 64), True, 0, "bfloat16", dict(bq=64, bk=64)),
+    ((2, 72, 2, 128), True, 0, "bfloat16", {}),
+    ((1, 130, 2, 37), False, 0, "bfloat16", {}),
+    ((1, 512, 8, 80), False, 0, "bfloat16", {}),
+    ((1, 300, 2, 64), True, 100, "bfloat16", dict(bq=300, bk=300)),
+    ((1, 100, 3, 80), False, 40, "bfloat16", {}),
 ]
 
 
@@ -270,9 +338,12 @@ def test_flash_attention_matches_plain(cuda, shape, causal, window, dtype,
     dt = getattr(torch, dtype)
     q, k, v = (rnd(shape, 100 + i).mul(0.3).to(cuda, dt) for i in range(3))
     before = flash_attention.launches
+    counts = dict(flash_attention.launches_by_route)
     got = flash_attention(q, k, v, causal=causal, window=window, **tiles)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    counts[flash_route(dt)] += 1
+    assert flash_attention.launches_by_route == counts
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     assert got.dtype == dt and got.shape == want.shape
     err = (got.float() - want.float()).abs()
@@ -333,11 +404,15 @@ def test_hybrid_engine_on_the_card_equals_serve_sequential(cuda):
                                       max_seq=48, kv_layout="dense"),
                     params=params, device=cuda)
     ssm_scan.launches = flash_attention.launches = 0
+    flash_attention.launches_by_route = {"fma": 0, "mma": 0}
     reqs = engine.run(specs)
     prefills = engine.stats()["prefills"]
     assert ssm_scan.launches == prefills * cfg.n_layers
     assert flash_attention.launches == \
         prefills * (cfg.n_layers // cfg.hybrid_attn_period)
+    # the smoke config computes in float32: the CUDA-core route
+    assert flash_attention.launches_by_route == {
+        "fma": flash_attention.launches, "mma": 0}
     got = [engine.finalize_request(r) for r in reqs]
     seq = serve_sequential(cfg, params, specs, max_seq=48,
                            prompt_buckets=(16, 40), device=cuda)

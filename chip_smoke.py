@@ -10,9 +10,11 @@ In order:
 1. builds every CUDA kernel of ``src/repro_torch/kernels/csrc`` (``nvcc``, one
    process per source, started together) and prints the build time;
 2. holds each kernel against its plain PyTorch version on the card: the
-   paged-attention kernel at the shapes of the JAX package's kernel test
-   (float32, tolerance 2e-5) and at full ``tinyllama-1.1b`` decode shapes
-   (bfloat16), an all-masked row included;
+   paged-attention kernel (split across the context in partitions of
+   ``PARTITION`` positions, two passes per launch) at the shapes of the JAX
+   package's kernel test and at a 4096-position table with a window that
+   starts mid-partition (float32, tolerance 2e-5), and at full
+   ``tinyllama-1.1b`` decode shapes (bfloat16), an all-masked row included;
 3. serves full-width ``tinyllama-1.1b`` (22 layers, random weights from
    ``--seed``) through the port's ``Engine`` on the paged layout — 16 greedy
    requests, prompts of 100-500 tokens, 64 new tokens each — once with
@@ -70,6 +72,9 @@ In order:
    ``mma`` route beside its ``wgmma`` one, on the same inputs), and prints the
    ``kernels`` JSON line (all seven kernels, each with its ``kernel_route``),
    the card's name and power limit, and last the ``{"ok": true, ...}`` line.
+   Paged attention is also timed at partitions of 32, 64 and 128 positions
+   on the same inputs. The build's ptxas report must show no spills in the
+   paged-attention and matmul kernels.
 
 Any failed phase exits non-zero before the last line.
 """
@@ -216,6 +221,22 @@ def kernel_checks(torch, np, seed, device):
                                           window=window)
         check(bool((o[0] == 0).all()) and bool((m[0] == NEG).all())
               and bool((l[0] == 0).all()), "all-masked row is not zero")
+    # a 4096-position table: many partitions, the window starting
+    # mid-partition, float32, tolerance 2e-5
+    q, k, v, pt = paged_inputs(torch, rng, 4, 4096, 32, 4, 64, 16,
+                               torch.float32, device)
+    limit = torch.tensor([0, 1000, 2049, 4096], dtype=torch.int32,
+                         device=device)
+    for window in (0, 1000):
+        got = paged_attention_partial(q, k, v, pt, limit, window=window)
+        want = paged_attention_partial_ref(q, k, v, pt, limit, window=window)
+        # the max error printed counts out only: l sums up to 4096 terms and
+        # is held to the relative tolerance
+        worst = max(worst, (got[0] - want[0]).abs().max().item())
+        for g, w in zip(got, want):
+            check(torch.allclose(g, w, rtol=2e-5, atol=2e-5),
+                  f"kernel vs plain at 4096 positions (window={window}): "
+                  f"{(g - w).abs().max().item()}")
     torch.cuda.synchronize()
     # (b) full tinyllama decode shapes, bfloat16: both versions accumulate in
     # float32 from the same bf16 inputs and round the output to bf16, so a
@@ -571,6 +592,7 @@ def matmul_route_checks(torch, seed, device):
 def time_kernels(torch, np, seed, limits, launches, device):
     """The paged-attention kernel at the serving decode shape (one layer of
     one step: 8 rows, tinyllama heads, the run's mid-stream contexts)."""
+    from repro_torch.kernels import paged_attention as tpa
     from repro_torch.kernels.paged_attention import (
         paged_attention_partial, paged_attention_partial_ref)
     import torch.nn.functional as F
@@ -590,6 +612,15 @@ def time_kernels(torch, np, seed, limits, launches, device):
                    flush)
     plain_ms = time_cuda(lambda: paged_attention_partial_ref(
         q, k, v, pt, limit), 50, flush)
+    # the same inputs at other partition sizes (the wrapper reads the
+    # module's PARTITION at each call)
+    part = tpa.PARTITION
+    by_partition = {}
+    for size in (32, 64, 128):
+        tpa.PARTITION = size
+        by_partition[size] = time_cuda(
+            lambda: paged_attention_partial(q, k, v, pt, limit), 50, flush)
+    tpa.PARTITION = part
     paged_attention_partial.launches = saved   # timing launches do not count
     # yardstick: one SDPA call on the already-gathered K/V with the same mask
     S = pt.shape[1] * ps
@@ -617,9 +648,16 @@ def time_kernels(torch, np, seed, limits, launches, device):
     flops = 4 * ctx * H * hd                  # q.k and p.v, 2 flops per MAC
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
+    splits = tpa.partition_count(pt.shape[1], ps)
+    print(f"paged attention at the serving shape: partitions of {part} "
+          f"positions, {splits} splits for a {pt.shape[1] * ps}-position "
+          f"table; ms by partition size " + ", ".join(
+              f"{size}: {t:.4f}" for size, t in by_partition.items()),
+          flush=True)
     return [{
         "name": "paged_attention_partial", "route": "cuda",
-        "kernel_route": "cuda_cores",
+        "kernel_route": "split", "partition": part, "splits": splits,
+        "ms_by_partition": by_partition,
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:82",
         "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1221,6 +1259,8 @@ def main() -> int:
         for kernel, regs, spill in ptxas_report(log):
             print(f"  ptxas[{name}] {kernel}: {regs} registers, {spill} bytes "
                   f"spilled")
+            check(spill == 0 or name not in ("paged_attention", "matmul"),
+                  f"ptxas: {kernel} of {name}.cu spills {spill} bytes")
 
     t0 = time.perf_counter()
     err32, err16 = kernel_checks(torch, np, args.seed, device)

@@ -35,9 +35,12 @@
 //   bytes so those reads meet no bank conflict. Single-buffered, synchronous
 //   tile loads.
 // * route 0 ("fma"), float32: the CUDA cores (fmaf), never TF32, whose 10-bit
-//   mantissa would not meet the reference's float32 tolerance. Each of 256
-//   threads computes an 8 x 8 block of a 128 x 128 tile from registers, fed by
-//   16-byte reads of a k-major copy of A and of B in shared memory.
+//   mantissa would not meet the reference's float32 tolerance. Each of 128
+//   threads computes an 8 x 16 block of a 128 x 128 tile from registers, fed
+//   by 16-byte reads of a k-major copy of A and of B in two shared-memory
+//   stages: the next k tile's loads (A through registers, B by cp.async) are
+//   in flight during the current tile's FMAs, with one barrier per k step of
+//   16 (8192^3 from 30.4 to 23.7 ms on an H100, PERF.md).
 // On routes 0 and 1, edges of any shape are masked: loads outside A or B read
 // zeros, stores outside C are skipped; 16-byte global loads are used where
 // the row length and alignment allow them, else element loads.
@@ -53,76 +56,165 @@ namespace {
 
 // ------------------------------------------------ float32 on the CUDA cores
 
-constexpr int kFM = 128, kFN = 128, kFK = 8, kFT = 8;  // tile, k step, per-thread
-constexpr int kFThreads = 256;
+constexpr int kFM = 128, kFN = 128, kFK = 16;  // tile and k step
+constexpr int kFThreads = 128;                 // 16 x 8 threads of 8 x 16 outputs
+constexpr int kFPad = 4;                       // As row padding (floats)
+constexpr int kFQuads = kFK / 4;               // float4s per A row of a k tile
+constexpr int kFLoads = kFM * kFK / 4 / kFThreads;  // float4s a thread loads per operand
+// two stages of As [kFK][kFM + kFPad] and Bs [kFK][kFN], 33 KB; dynamic:
+// the same kernel with static arrays ran slower on an H100
+constexpr int kFSmem = 2 * kFK * (kFM + kFPad + kFN) * 4;
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Two shared-memory stages, one __syncthreads per k step: the loads of k
+// tile t+1 are issued before the FMAs of tile t (A into registers, stored
+// k-major after the FMAs; B by cp.async straight into the other stage), so
+// their latency hides behind the FMAs. Thread (tr, tc) owns rows
+// tr*4 + {0..3} and 64 + tr*4 + {0..3}, and columns tc*4 + {0..3} + 32 q for
+// q < 4: 128 independent FMAs per k for 6 fragment reads. A warp covers 4 tr
+// x 8 tc, so a quarter-warp reads one A float4 (a broadcast) and eight
+// consecutive B float4s (128 bytes): fragment reads meet no bank conflict.
+// As rows are padded by 4 floats so that the transposing stores of A meet
+// few.
 template <bool kVecA, bool kVecB>
 __global__ void __launch_bounds__(kFThreads)
 sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
              float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[kFK][kFM];   // k-major: As[k][m]
-  __shared__ __align__(16) float Bs[kFK][kFN];
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) float fsmem[];
+  auto As = reinterpret_cast<float (*)[kFK][kFM + kFPad]>(fsmem);   // k-major: As[k][m]
+  auto Bs = reinterpret_cast<float (*)[kFK][kFN]>(fsmem + 2 * kFK * (kFM + kFPad));
+  constexpr int kQ = 4, kQStride = kFN / kQ;   // column quads of a thread
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
-  const int tr = tid / 16, tc = tid % 16;        // 16 x 16 threads of 8 x 8
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;      // 128 rows x 2 quads
-  const int b_k = tid >> 5, b_col = (tid & 31) * 4;     // 8 rows x 32 quads
-  float acc[kFT][kFT];
+  const int tr = warp * 4 + (lane >> 3), tc = lane & 7;
+  float acc[8][4 * kQ];
 #pragma unroll
-  for (int i = 0; i < kFT; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kFT; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * kQ; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    float av[4], bv[4];
-    const int gm = m0 + a_row, ga = k0 + a_k;
-    if (kVecA && gm < M && ga + 3 < K) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(A + (size_t)gm * K + ga));
-      av[0] = v.x; av[1] = v.y; av[2] = v.z; av[3] = v.w;
-    } else {
+  float av[kFLoads][4], bv[kFLoads][4];
+  auto load_a = [&](int k0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        av[e] = (gm < M && ga + e < K) ? A[(size_t)gm * K + ga + e] : 0.f;
+    for (int l = 0; l < kFLoads; ++l) {
+      const int e4 = tid + l * kFThreads;
+      const int gm = m0 + e4 / kFQuads, ga = k0 + (e4 % kFQuads) * 4;
+      if (kVecA && gm < M && ga < K) {   // K % 4 == 0: the quad is whole
+        const float4 v = __ldg(reinterpret_cast<const float4*>(A + (size_t)gm * K + ga));
+        av[l][0] = v.x; av[l][1] = v.y; av[l][2] = v.z; av[l][3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          av[l][e] = (gm < M && ga + e < K) ? A[(size_t)gm * K + ga + e] : 0.f;
+      }
     }
-    const int gk = k0 + b_k, gn = n0 + b_col;
-    if (kVecB && gk < K && gn + 3 < N) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(B + (size_t)gk * N + gn));
-      bv[0] = v.x; bv[1] = v.y; bv[2] = v.z; bv[3] = v.w;
-    } else {
+  };
+  auto store_a = [&](int st) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        bv[e] = (gk < K && gn + e < N) ? B[(size_t)gk * N + gn + e] : 0.f;
+    for (int l = 0; l < kFLoads; ++l) {
+      const int e4 = tid + l * kFThreads;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) As[st][(e4 % kFQuads) * 4 + e][e4 / kFQuads] = av[l][e];
     }
+  };
+  auto load_b = [&](int k0, int st) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) As[a_k + e][a_row] = av[e];
-    *reinterpret_cast<float4*>(&Bs[b_k][b_col]) = make_float4(bv[0], bv[1], bv[2], bv[3]);
-    __syncthreads();
+    for (int l = 0; l < kFLoads; ++l) {
+      const int e4 = tid + l * kFThreads;
+      const int bk = e4 / (kFN / 4), bc = (e4 % (kFN / 4)) * 4;
+      const int gk = k0 + bk, gn = n0 + bc;
+      if (kVecB) {   // N % 4 == 0: a quad is whole or wholly outside (zero-fill)
+        const bool ok = gk < K && gn < N;
+        cp_async16(&Bs[st][bk][bc], ok ? B + (size_t)gk * N + gn : B, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          bv[l][e] = (gk < K && gn + e < N) ? B[(size_t)gk * N + gn + e] : 0.f;
+      }
+    }
+  };
+  auto store_b = [&](int st) {
+    if (kVecB) return;
+#pragma unroll
+    for (int l = 0; l < kFLoads; ++l) {
+      const int e4 = tid + l * kFThreads;
+      const int bk = e4 / (kFN / 4), bc = (e4 % (kFN / 4)) * 4;
+      *reinterpret_cast<float4*>(&Bs[st][bk][bc]) =
+          make_float4(bv[l][0], bv[l][1], bv[l][2], bv[l][3]);
+    }
+  };
+
+  const int nk = (K + kFK - 1) / kFK;
+  if (nk > 0) {
+    load_a(0);
+    load_b(0, 0);
+    cp_async_commit();
+    store_a(0);
+    store_b(0);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < nk;
+    if (more) {
+      load_a((kt + 1) * kFK);
+      load_b((kt + 1) * kFK, cur ^ 1);
+      cp_async_commit();
+    }
 #pragma unroll
     for (int k = 0; k < kFK; ++k) {
-      float ra[kFT], rb[kFT];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][tr * kFT]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][tr * kFT + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tc * kFT]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][tc * kFT + 4]);
+      float ra[8], rb[4 * kQ];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][tr * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + tr * 4]);
       ra[0] = a0.x; ra[1] = a0.y; ra[2] = a0.z; ra[3] = a0.w;
       ra[4] = a1.x; ra[5] = a1.y; ra[6] = a1.z; ra[7] = a1.w;
-      rb[0] = b0.x; rb[1] = b0.y; rb[2] = b0.z; rb[3] = b0.w;
-      rb[4] = b1.x; rb[5] = b1.y; rb[6] = b1.z; rb[7] = b1.w;
 #pragma unroll
-      for (int i = 0; i < kFT; ++i)
+      for (int q = 0; q < kQ; ++q) {
+        const float4 b = *reinterpret_cast<const float4*>(&Bs[cur][k][q * kQStride + tc * 4]);
+        rb[4 * q] = b.x; rb[4 * q + 1] = b.y; rb[4 * q + 2] = b.z; rb[4 * q + 3] = b.w;
+      }
 #pragma unroll
-        for (int j = 0; j < kFT; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * kQ; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+    }
+    if (more) {
+      // the other stage was last read before the previous step's barrier
+      store_a(cur ^ 1);
+      store_b(cur ^ 1);
+      cp_async_wait_all();
     }
     __syncthreads();
   }
+  // rows (i / 4) * 64 + tr * 4 + i % 4, columns q * kQStride + tc * 4 + j % 4
 #pragma unroll
-  for (int i = 0; i < kFT; ++i) {
-    const int gm = m0 + tr * kFT + i;
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i >> 2) * 64 + tr * 4 + (i & 3);
     if (gm >= M) continue;
 #pragma unroll
-    for (int j = 0; j < kFT; ++j) {
-      const int gn = n0 + tc * kFT + j;
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
+    for (int q = 0; q < kQ; ++q) {
+      const int gn = n0 + q * kQStride + tc * 4;
+      float* c = C + (size_t)gm * N + gn;
+      if (kVecB && gn < N) {   // N % 4 == 0 and C aligned: the quad is whole
+        *reinterpret_cast<float4*>(c) = make_float4(acc[i][4 * q], acc[i][4 * q + 1],
+                                                    acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (gn + e < N) c[e] = acc[i][4 * q + e];
+      }
     }
   }
 }
@@ -478,11 +570,12 @@ extern "C" int matmul_launch(const void* a, const void* b, void* c, int M, int N
     const float* A = static_cast<const float*>(a);
     const float* B = static_cast<const float*>(b);
     float* C = static_cast<float*>(c);
-    const bool va = K % 4 == 0 && aligned16(a), vb = N % 4 == 0 && aligned16(b);
-    if (va && vb) sgemm_kernel<true, true><<<grid, kFThreads, 0, s>>>(A, B, C, M, N, K);
-    else if (va) sgemm_kernel<true, false><<<grid, kFThreads, 0, s>>>(A, B, C, M, N, K);
-    else if (vb) sgemm_kernel<false, true><<<grid, kFThreads, 0, s>>>(A, B, C, M, N, K);
-    else sgemm_kernel<false, false><<<grid, kFThreads, 0, s>>>(A, B, C, M, N, K);
+    const bool va = K % 4 == 0 && aligned16(a);
+    const bool vb = N % 4 == 0 && aligned16(b) && aligned16(c);
+    if (va && vb) sgemm_kernel<true, true><<<grid, kFThreads, kFSmem, s>>>(A, B, C, M, N, K);
+    else if (va) sgemm_kernel<true, false><<<grid, kFThreads, kFSmem, s>>>(A, B, C, M, N, K);
+    else if (vb) sgemm_kernel<false, true><<<grid, kFThreads, kFSmem, s>>>(A, B, C, M, N, K);
+    else sgemm_kernel<false, false><<<grid, kFThreads, kFSmem, s>>>(A, B, C, M, N, K);
   } else if (route == 1) {
     const dim3 grid((N + kHN - 1) / kHN, (M + kHM - 1) / kHM);
     const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);

@@ -10,8 +10,12 @@ token's K/V (the deferred insert) stays outside the kernel, in
 
 * ``paged_attention_partial`` — the wrapper. For a tensor on the CPU it runs
   the plain version; for a CUDA tensor it launches the CUDA kernel
-  (``csrc/paged_attention.cu``) or raises. ``paged_attention_partial.launches``
-  counts kernel launches, and nothing else.
+  (``csrc/paged_attention.cu``) or raises. The kernel splits the context into
+  partitions of ``PARTITION`` positions (flash-decoding): one launcher call
+  enqueues both its passes, the partials of each partition into a scratch
+  buffer allocated here and their merge, so one launch means both passes.
+  ``paged_attention_partial.launches`` counts those launches, and nothing
+  else.
 * ``paged_attention_partial_ref`` — the plain PyTorch version: a gather through
   the page table and a masked softmax, in float32.
 """
@@ -25,6 +29,18 @@ from ..models.layers import NEG, gather_kv_pages
 from ._cuda import DTYPE_CODES, FLOAT, INT, PTR, function, launch
 
 MAX_HEAD_DIM = 256
+# positions per partition of the kernel's first pass: a multiple of its
+# 32-position tile; partitions are aligned to position 0
+PARTITION = 64
+
+
+def partition_count(pages: int, page_size: int,
+                    partition: int = PARTITION) -> int:
+    """The kernel's split dimension: partitions that cover the page table's
+    ``pages * page_size`` positions. It depends on the table's width only,
+    never on the batch or the limits, so a row's partitions, and its result,
+    are the same in any batch."""
+    return -(-pages * page_size // partition)
 
 
 def paged_attention_partial_ref(q, k_pages, v_pages, page_table, limit, *,
@@ -77,16 +93,20 @@ def _launch_cuda(q, k_pages, v_pages, page_table, limit, window):
     if page_table.dtype != torch.int32 or limit.dtype != torch.int32:
         raise ValueError("page_table and limit must be int32")
     G = H // KV
+    splits = partition_count(P, PS, PARTITION)
     out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
     m = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
     l = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+    # the first pass's float32 partials: acc [B,KV,splits,G,hd], m, l
+    scratch = torch.empty(B * KV * splits * G * (hd + 2),
+                          dtype=torch.float32, device=q.device)
     fn = function("paged_attention", "paged_attention_partial_launch",
-                  [PTR] * 8 + [INT] * 7 + [FLOAT, INT])
+                  [PTR] * 9 + [INT] * 7 + [FLOAT] + [INT] * 3)
     launch("paged_attention_partial", fn, q.device, q.data_ptr(),
            k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-           limit.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B,
-           KV, G, hd, PS, P, int(window), 1.0 / math.sqrt(hd),
-           DTYPE_CODES[q.dtype])
+           limit.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+           scratch.data_ptr(), B, KV, G, hd, PS, P, int(window),
+           1.0 / math.sqrt(hd), PARTITION, splits, DTYPE_CODES[q.dtype])
     paged_attention_partial.launches += 1
     return out, m, l
 

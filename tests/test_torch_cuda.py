@@ -10,6 +10,8 @@ PyTorch version, the engine on the card against ``serve_sequential``, and
 the threefry noise on the card against the same noise on the CPU, and the
 hybrid family's prefill through the flash-attention and SSD kernels.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -57,18 +59,30 @@ def pool(B, P, ps, KV, hd, seed, dev, dt):
     return k.to(dev, dt), v.to(dev, dt), pt.to(dev)
 
 
+def limits_for(P, ps):
+    """Row 0 all masked, then 1, page and partition boundaries and the
+    table's end; a long table adds positions deep into it."""
+    if P * ps <= 512:
+        return [0, 1, ps, ps + 1, P * ps - 1, P * ps]
+    part = tpa.PARTITION
+    return [0, 1, part, 7 * part + 1, P * ps - 1, P * ps]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,KV,hd,ps,window",
-                         [(32, 4, 64, 16, 0), (4, 2, 16, 4, 0),
-                          (4, 2, 16, 8, 10), (8, 8, 128, 64, 0),
-                          (6, 2, 20, 5, 0)])
-def test_kernel_matches_plain(cuda, dtype, H, KV, hd, ps, window):
+@pytest.mark.parametrize("H,KV,hd,ps,window,P",
+                         [(32, 4, 64, 16, 0, 8), (4, 2, 16, 4, 0, 8),
+                          (4, 2, 16, 8, 10, 8), (8, 8, 128, 64, 0, 8),
+                          (6, 2, 20, 5, 0, 8),
+                          # P * ps = 4096: many partitions, and windows that
+                          # start mid-partition
+                          (32, 4, 64, 16, 0, 256), (32, 4, 64, 16, 1000, 256),
+                          (4, 2, 16, 8, 10, 512), (8, 8, 128, 64, 300, 64)])
+def test_kernel_matches_plain(cuda, dtype, H, KV, hd, ps, window, P):
     dt = getattr(torch, dtype)
-    B, P = 6, 8
+    B = 6
     k, v, pt = pool(B, P, ps, KV, hd, 50, cuda, dt)
     q = rnd((B, 1, H, hd), 52).to(cuda, dt)
-    limit = torch.tensor([0, 1, ps, ps + 1, P * ps - 1, P * ps],
-                         dtype=torch.int32, device=cuda)
+    limit = torch.tensor(limits_for(P, ps), dtype=torch.int32, device=cuda)
     before = tpa.paged_attention_partial.launches
     got = tpa.paged_attention_partial(q, k, v, pt, limit, window=window)
     torch.cuda.synchronize()
@@ -83,6 +97,33 @@ def test_kernel_matches_plain(cuda, dtype, H, KV, hd, ps, window):
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
     assert (got[0][0] == 0).all() and (got[1][0] == NEG).all() \
         and (got[2][0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 300])
+def test_kernel_result_of_a_row_does_not_depend_on_its_batch(cuda, dtype,
+                                                            window):
+    """A row's (out, m, l) launched in a batch of 6 equals, bit for bit, the
+    same row launched alone, in the batch reversed, and beside rows whose
+    limits changed: its partitions depend on its own limit and window."""
+    dt = getattr(torch, dtype)
+    B, P, ps, KV, hd, H = 6, 64, 16, 4, 64, 32
+    k, v, pt = pool(B, P, ps, KV, hd, 54, cuda, dt)
+    q = rnd((B, 1, H, hd), 56).to(cuda, dt)
+    lim = [0, 1, 160, 333, 544, P * ps]
+    limit = torch.tensor(lim, dtype=torch.int32, device=cuda)
+    run = functools.partial(tpa.paged_attention_partial, window=window)
+    batch = run(q, k, v, pt, limit)
+    rev = run(q.flip(0), k, v, pt.flip(0), limit.flip(0))
+    for i in range(B):
+        alone = run(q[i:i + 1], k, v, pt[i:i + 1], limit[i:i + 1])
+        others = limit.clone()
+        others[torch.arange(B, device=cuda) != i] = lim[(i + 3) % B]
+        mixed = run(q, k, v, pt, others)
+        for x, a, r, mx in zip(batch, alone, rev, mixed):
+            assert torch.equal(x[i], a[0])
+            assert torch.equal(x[i], r[B - 1 - i])
+            assert torch.equal(x[i], mx[i])
 
 
 @pytest.mark.parametrize("with_new", [False, True])
@@ -214,6 +255,11 @@ def test_paper_kernels_run_misaligned_operands(cuda):
     (100, 72, 36, "bfloat16", 0, "mma"),
     (64, 128, 128, "bfloat16", 1, "mma"),
     (100, 72, 36, "float32", 0, "fma"),
+    # float32 over 25 k steps, both stages: ragged M and N, whole quads;
+    # A 4 bytes into its storage; K and N no multiple of 4
+    (1000, 200, 1032, "float32", 0, "fma"),
+    (1000, 200, 1032, "float32", 1, "fma"),
+    (1000, 203, 1030, "float32", 0, "fma"),
 ])
 def test_matmul_takes_its_route(cuda, M, K, N, dtype, offset, route):
     """Each route launches its own kernel (``offset`` starts A that many
